@@ -18,14 +18,27 @@ raises and the script exits non-zero without the result line.
             for k in 32, 28, 24, 20.  Times from CUDA events after warm-up.
 4. main     a seeded synthetic genome of 4,641,652 bp (the length of E. coli
             K-12 MG1655) in 4 contigs, mutated every ~700 bp (sub/ins/del)
-            and covered by simulated reads with a PAF, polished by the CLI
-            twice: `--backend hybrid --no-sealer -k 32 -k 28 -k 24 -k 20
-            -b 1` with GPTPU_FORCE_DEVICE_SCAN=1, then `--backend numpy`.
-            Requires byte-identical outputs, scan-kernel launches > 0 and no
-            plain-version call during the hybrid run.
+            with a 60-bp `n` gap every 50 kbp (92 gaps), covered by
+            simulated reads with a PAF, polished by the CLI's default chain
+            (ntEdit -> mask -> sealer -> upper) twice: `--backend hybrid
+            -k 32 -k 28 -k 24 -k 20 -b 1` with GPTPU_FORCE_DEVICE_SCAN=1,
+            then `--backend numpy`.  Requires byte-identical outputs,
+            scan-kernel launches > 0 and no plain-version call during the
+            hybrid run; prints the sealer's seconds and gaps found / closed.
+5. sealer   the sealer stage alone, on the 4.64 Mbp truth with a 60-bp
+            lowercase gap every 18 kbp (256 gaps) and 16 MiB filters of the
+            truth's k-mers at k = 32, 28, 24, 20 (h = 4): seal_records with
+            backend numpy, then backend hybrid on the card.  Requires equal
+            records and stats, dbg_bfs launches > 0 and no plain-version
+            call during the hybrid run.  Then dbg_bfs (the whole-search BFS
+            kernel) against its plain version on the first 256 k = 32
+            searches of that run, at both run tiers (W = 32 and 256),
+            required equal as per-direction (k-mer, mask) sets.
 
-Then a {"kernels": [...]} line for the kernels the main path launched, and
-last the line {"ok": true, "device": {"platform": "gpu", ...}}.
+Then a {"kernels": [...]} line (launches counted on the path each kernel
+serves: the main path for the scan, phase 5 for the BFS; the probe is fused
+into both and launches nothing on its own), and last the line
+{"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
 from __future__ import annotations
@@ -45,6 +58,12 @@ N_CONTIGS = 4
 K_VALUES = [32, 28, 24, 20]
 FILTER_BITS = 1 << 25  # 4 MiB, the size the main path's batches autoscale to
 SEED = 20261016
+MAIN_GAP_EVERY = 50_000  # one 60-bp n gap per 50 kbp of draft (tests/refscale.py:44-46)
+SEALER_GAP_EVERY = 18_000  # the sealer phase: one 60-bp lowercase gap per 18 kbp
+GAP_LEN = 60
+# the sealer phase's filters: bulk's 4 MiB per ~1.16 Mbp batch, scaled to
+# the whole genome, so the false-positive branching matches bulk's
+SEALER_FILTER_BYTES = 16 << 20
 
 
 def emit(**obj) -> None:
@@ -160,7 +179,7 @@ def make_inputs(rng, work: str):
         (f"ctg{i}", acgt[rng.integers(0, 4, n)].tobytes().decode())
         for i, n in enumerate(sizes)
     ]
-    # mixed sub/ins/del every ~700 bp, no gaps (tests/refscale.py:31-49)
+    # mixed sub/ins/del every ~700 bp and n gaps (tests/refscale.py:31-49)
     drafts = []
     for name, t in truths:
         d = list(t)
@@ -172,6 +191,9 @@ def make_inputs(rng, work: str):
                 d[p] = ""
             else:
                 d[p] = d[p] + "ACGT"[int(rng.integers(4))]
+        for p in range(MAIN_GAP_EVERY // 2, len(t) - MAIN_GAP_EVERY // 2,
+                       MAIN_GAP_EVERY):
+            d[p : p + GAP_LEN] = ["n"] * GAP_LEN
         drafts.append((name, "".join(d)))
     draft = os.path.join(work, "draft.fa")
     with open(draft, "w") as f:
@@ -211,6 +233,33 @@ def read_fasta(path: str) -> list[tuple[str, str]]:
     return out
 
 
+class SealerTally:
+    """Sums each batch's sealer stats while the CLI runs: wraps
+    bulk.polish_batch_records, which run_bulk looks up per batch."""
+
+    def __init__(self):
+        from goldpolish_tpu_torch.pipeline import bulk
+
+        self.bulk = bulk
+        self.inner = bulk.polish_batch_records
+        self.gaps_found = self.gaps_closed = 0
+        self.sealer_s = 0.0
+
+    def __call__(self, *args, **kw):
+        res = self.inner(*args, **kw)
+        self.gaps_found += res.stats["sealer"]["gaps_found"]
+        self.gaps_closed += res.stats["sealer"]["gaps_closed"]
+        self.sealer_s += res.stats["timing"]["sealer_s"]
+        return res
+
+    def __enter__(self):
+        self.bulk.polish_batch_records = self
+        return self
+
+    def __exit__(self, *exc):
+        self.bulk.polish_batch_records = self.inner
+
+
 def phase_main(rng):
     from goldpolish_tpu_torch import cli
     from goldpolish_tpu_torch.io import seqindex
@@ -233,11 +282,12 @@ def phase_main(rng):
             out = os.path.join(work, f"polished_{backend}.fa")
             argv = [draft, reads, out, "--mappings", paf, "-b", "1",
                     "-m", os.path.join(work, f"ws_{backend}"),
-                    "--backend", backend, "--no-sealer"]
+                    "--backend", backend]
             for k in K_VALUES:
                 argv += ["-k", str(k)]
             t = time.monotonic()
-            rc = cli.main(argv)
+            with SealerTally() as tally:
+                rc = cli.main(argv)
             wall = time.monotonic() - t
             if rc != 0:
                 raise RuntimeError(f"cli.main ({backend}) returned {rc}")
@@ -246,7 +296,7 @@ def phase_main(rng):
             recs = read_fasta(out)
             truth = dict(truths)
             exact = sum(1 for n, s in recs if s.upper() == truth.get(n))
-            return data, wall, recs, exact
+            return data, wall, recs, exact, tally
 
         counters = [sc.scan_present_packed.launches, bp.probe_lo32.launches,
                     sc.scan_present_packed_reference.calls,
@@ -255,7 +305,7 @@ def phase_main(rng):
             c.reset()
         os.environ["GPTPU_FORCE_DEVICE_SCAN"] = "1"
         try:
-            hy, hy_wall, hy_recs, hy_exact = polish("hybrid")
+            hy, hy_wall, hy_recs, hy_exact, hy_seal = polish("hybrid")
         finally:
             os.environ.pop("GPTPU_FORCE_DEVICE_SCAN", None)
         launches, probe_launches, plain_scan, plain_probe = (
@@ -265,13 +315,17 @@ def phase_main(rng):
              polished_bases_per_s=draft_bp / hy_wall,
              contigs=len(hy_recs), contigs_equal_truth=hy_exact,
              share_equal_truth=hy_exact / N_CONTIGS,
+             sealer_s=hy_seal.sealer_s, gaps_found=hy_seal.gaps_found,
+             gaps_closed=hy_seal.gaps_closed,
              scan_kernel_launches=launches, probe_kernel_launches=probe_launches,
              plain_calls=plain_scan + plain_probe)
-        np_bytes, np_wall, np_recs, np_exact = polish("numpy")
+        np_bytes, np_wall, np_recs, np_exact, np_seal = polish("numpy")
         emit(phase="main_numpy", wall_s=np_wall,
              polished_bases_per_s=draft_bp / np_wall,
              contigs=len(np_recs), contigs_equal_truth=np_exact,
-             share_equal_truth=np_exact / N_CONTIGS)
+             share_equal_truth=np_exact / N_CONTIGS,
+             sealer_s=np_seal.sealer_s, gaps_found=np_seal.gaps_found,
+             gaps_closed=np_seal.gaps_closed)
         identical = hy == np_bytes
         emit(phase="main_check", hybrid_equals_numpy=identical,
              output_bytes=len(hy))
@@ -279,13 +333,177 @@ def phase_main(rng):
             raise AssertionError("hybrid output differs from the numpy backend")
         if len(hy_recs) != N_CONTIGS:
             raise AssertionError(f"{len(hy_recs)} contigs out, {N_CONTIGS} in")
+        if hy_seal.gaps_found <= 0:
+            raise AssertionError("the sealer found no gap on the main path")
         if launches <= 0:
             raise AssertionError("the main path launched no scan kernel")
         if plain_scan or plain_probe:
             raise AssertionError("a plain version ran during the CUDA run")
-        return launches
+        return launches, probe_launches, truths
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+def truth_filters(truths):
+    """16 MiB filters of the truth's k-mers per k (h = 4), inserted per
+    contig as tests/test_dbg_bfs.py:26-32 does."""
+    from goldpolish_tpu_torch.ops import bloom
+    from goldpolish_tpu_torch.ops import nthash as nt
+
+    bfs = {}
+    for k in K_VALUES:
+        bf = bloom.BloomFilter(SEALER_FILTER_BYTES, 4, k)
+        for _name, t in truths:
+            bf.insert(nt.multi_hashes(nt.canonical_hashes(nt.encode(t), k), k, 4))
+        bfs[k] = bf
+    return bfs
+
+
+class SearchLog:
+    """Records, while the hybrid sealer runs, the searches DeviceBFS was
+    asked for per k, how many came back overflowed, and how many mask
+    replays missed (both go back to the host search)."""
+
+    def __init__(self):
+        from goldpolish_tpu_torch.fill import konnector
+        from goldpolish_tpu_torch.ops import dbg_bfs
+
+        self.konnector, self.dbg_bfs = konnector, dbg_bfs
+        self.searches: dict[int, list] = {}
+        self.overflowed = 0
+        self.replays: list = []
+
+    def __enter__(self):
+        log = self
+        self.run = run = self.dbg_bfs.DeviceBFS.run
+        self.mask_dbg = mask_dbg = self.konnector.MaskDBG
+
+        def logged_run(bfs, searches):
+            out = run(bfs, searches)
+            log.searches.setdefault(bfs.k, []).extend(searches)
+            log.overflowed += sum(1 for r in out if r == (None, None))
+            return out
+
+        class LoggedMaskDBG(mask_dbg):
+            def __init__(self, *a):
+                super().__init__(*a)
+                log.replays.append(self)
+
+        self.dbg_bfs.DeviceBFS.run = logged_run
+        self.konnector.MaskDBG = LoggedMaskDBG
+        return self
+
+    def __exit__(self, *exc):
+        self.dbg_bfs.DeviceBFS.run = self.run
+        self.konnector.MaskDBG = self.mask_dbg
+
+    @property
+    def missed(self) -> int:
+        return sum(1 for m in self.replays if m.missed)
+
+
+def canonical_bfs(out):
+    """Per (search, direction): (n_vis, over, sorted (k-mer, mask) pairs of
+    the log) — the kernel's log order is free, the plain version's is not."""
+    vis, msk, n_vis, over = (t.cpu().numpy() for t in out)
+    vis = vis.view(np.uint64)
+    rows = []
+    for g in range(vis.shape[0]):
+        for d in range(2):
+            n = min(int(n_vis[g, d]), vis.shape[2])
+            pairs = sorted(zip(vis[g, d, :n].tolist(), msk[g, d, :n].tolist()))
+            rows.append((int(n_vis[g, d]), bool(over[g, d]), pairs))
+    return rows
+
+
+def bfs_err(got, want) -> int:
+    """Max absolute difference of two canonical logs (n_vis, over, masks of
+    equal k-mers); a differing k-mer set counts as 1 << 8."""
+    err = 0
+    for (n1, o1, p1), (n2, o2, p2) in zip(got, want):
+        err = max(err, abs(n1 - n2), abs(int(o1) - int(o2)))
+        if [k for k, _m in p1] != [k for k, _m in p2]:
+            err = max(err, 1 << 8)
+        else:
+            err = max([err] + [abs(a[1] - b[1]) for a, b in zip(p1, p2)])
+    return err
+
+
+def phase_sealer(truths):
+    import torch
+
+    from goldpolish_tpu_torch.fill import sealer
+    from goldpolish_tpu_torch.ops import dbg_bfs
+
+    t0 = time.monotonic()
+    bfs_by_k = truth_filters(truths)
+    records = []
+    n_gaps = 0
+    for name, t in truths:
+        s = list(t)
+        for p in range(SEALER_GAP_EVERY // 2, len(t) - SEALER_GAP_EVERY // 2,
+                       SEALER_GAP_EVERY):
+            s[p : p + GAP_LEN] = t[p : p + GAP_LEN].lower()
+            n_gaps += 1
+        records.append((f"{name} sealer", "".join(s)))
+    emit(phase="sealer_inputs", seconds=time.monotonic() - t0,
+         filter_bytes=SEALER_FILTER_BYTES, k=K_VALUES, gaps=n_gaps)
+    cfg = sealer.SealerConfig(k_values=K_VALUES, flank_length=K_VALUES[0])
+    t = time.monotonic()
+    host_out, host_stats = sealer.seal_records(records, bfs_by_k, cfg)
+    host_s = time.monotonic() - t
+
+    dbg_bfs.dbg_bfs.launches.reset()
+    dbg_bfs.dbg_bfs_reference.calls.reset()
+    t = time.monotonic()
+    with SearchLog() as log:
+        dev_out, dev_stats = sealer.seal_records(records, bfs_by_k, cfg,
+                                                 backend="hybrid", device="cuda")
+    torch.cuda.synchronize()
+    dev_s = time.monotonic() - t
+    launches = dbg_bfs.dbg_bfs.launches.value
+    plain = dbg_bfs.dbg_bfs_reference.calls.value
+    n_searches = sum(len(v) for v in log.searches.values())
+    truth = dict(truths)
+    restored = sum(1 for h, s in dev_out if s.upper() == truth[h.split()[0]])
+    emit(phase="sealer_device", host_s=host_s, hybrid_s=dev_s,
+         gaps_found=host_stats["gaps_found"], gaps_closed=host_stats["gaps_closed"],
+         records_equal=dev_out == host_out, stats_equal=dev_stats == host_stats,
+         contigs_equal_truth=restored,
+         searches=n_searches, overflowed=log.overflowed, missed=log.missed,
+         share_to_host=(log.overflowed + log.missed) / max(1, n_searches),
+         dbg_bfs_launches=launches, plain_calls=plain)
+    if dev_out != host_out or dev_stats != host_stats:
+        raise AssertionError("hybrid seal_records differs from the host search")
+    if restored != len(truths):
+        raise AssertionError(f"{restored} of {len(truths)} sealed contigs equal the truth")
+    if launches <= 0:
+        raise AssertionError("the hybrid sealer launched no dbg_bfs kernel")
+    if plain:
+        raise AssertionError("the plain BFS ran during the CUDA sealer run")
+
+    # the kernel against its plain version on the first 256 k = 32 searches,
+    # at both run tiers (these launches are not counted above)
+    bfs = dbg_bfs.DeviceBFS(bfs_by_k[32], 32, device="cuda")
+    args = bfs.inputs(log.searches[32][:256])
+    rows = []
+    for W in (bfs.W, bfs.W2):
+        got = dbg_bfs.dbg_bfs(*args, W, bfs.V)
+        want = dbg_bfs.dbg_bfs_reference(*args, W, bfs.V)
+        err = bfs_err(canonical_bfs(got), canonical_bfs(want))
+        row = {
+            "W": W, "V": bfs.V, "searches": len(args[4]), "max_abs_err": err,
+            "overflowed": int(want[3].any(dim=1).sum().item()),
+            "logged": int(want[2].sum().item()),
+            "ms": time_ms(lambda: dbg_bfs.dbg_bfs(*args, W, bfs.V), 20),
+            "plain_ms": time_ms(lambda: dbg_bfs.dbg_bfs_reference(*args, W, bfs.V),
+                                2, warm=1),
+        }
+        rows.append(row)
+        emit(phase="kernel_dbg_bfs", **row)
+        if err:
+            raise AssertionError(f"dbg_bfs kernel disagrees with plain at W={W}")
+    return launches, rows
 
 
 def main() -> int:
@@ -322,20 +540,36 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     probe, scans = phase_kernels(rng)
-    launches = phase_main(rng)
+    launches, probe_launches, truths = phase_main(rng)
+    bfs_launches, bfs_rows = phase_sealer(truths)
     first = scans[0]
-    emit(phase="probe_on_main_path", kernel="probe_lo32",
-         note="fused into scan_present_packed through csrc/bloom_probe.cuh; "
-              "the main path launches no separate probe",
-         ms=probe["ms"], plain_ms=probe["plain_ms"])
-    print(json.dumps({"kernels": [{
-        "name": "scan_present_packed", "route": "cuda",
-        "source": "goldpolish_tpu_torch/csrc/scan_conv.cu",
-        "replaces": "goldpolish_tpu/ops/scan_conv.py:228",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in scans),
-        "ms": first["ms"], "plain_ms": first["plain_ms"],
-    }]}), flush=True)
+    print(json.dumps({"kernels": [
+        {
+            "name": "scan_present_packed", "route": "cuda",
+            "source": "goldpolish_tpu_torch/csrc/scan_conv.cu",
+            "replaces": "goldpolish_tpu/ops/scan_conv.py:228",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in scans),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+        },
+        {
+            "name": "probe_lo32", "route": "cuda",
+            "source": "goldpolish_tpu_torch/csrc/bloom_probe.cu",
+            "replaces": "goldpolish_tpu/ops/bloom_pallas.py:345",
+            "launches": probe_launches,
+            "fused_into": ["scan_present_packed", "dbg_bfs"],
+            "max_abs_err": probe["max_abs_err"],
+            "ms": probe["ms"], "plain_ms": probe["plain_ms"],
+        },
+        {
+            "name": "dbg_bfs", "route": "cuda",
+            "source": "goldpolish_tpu_torch/csrc/dbg_bfs.cu",
+            "replaces": "goldpolish_tpu/ops/dbg_bfs.py:86",
+            "launches": bfs_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in bfs_rows),
+            "ms": bfs_rows[0]["ms"], "plain_ms": bfs_rows[0]["plain_ms"],
+        },
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

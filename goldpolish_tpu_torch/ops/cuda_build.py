@@ -102,6 +102,13 @@ def lib() -> ctypes.CDLL:
             vp, u64, i32, i32, vp, i64, i64, vp, vp, vp, u64, vp, vp,
         ]
         L.gp_scan_present_packed.restype = i32
+        L.gp_dbg_bfs.argtypes = [
+            vp, u64, i32, i32, u64, vp, vp, vp, vp, vp, i64, i32, i32,
+            vp, vp, vp, vp, vp,
+        ]
+        L.gp_dbg_bfs.restype = i32
+        L.gp_dbg_bfs_smem_bytes.argtypes = [i32, i32]
+        L.gp_dbg_bfs_smem_bytes.restype = i64
         _LIB = L
         return L
 

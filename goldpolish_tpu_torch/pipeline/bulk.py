@@ -16,10 +16,12 @@ Batches run concurrently under an asyncio pool with a strictly ordered
 writer and a checkpoint manifest (pipeline.engine).
 
 Port counterpart: goldpolish_tpu/pipeline/bulk.py, copied with these cuts,
-each raising at startup until ported (ROADMAP.md queue 1): the sealer
-(run_sealer), the device fill (device_bf_build, fill_overlap), the
-internal minimizer mapper, and multi-host runs.  The per-batch chain here
-is multi-k ntEdit -> to-upper.
+each raising at startup until ported (ROADMAP.md queue 1): the device fill
+(device_bf_build, fill_overlap), the internal minimizer mapper, and
+multi-host runs.  The per-batch chain is the reference's whole chain; as in
+the JAX package, the sealer runs its host search for the numpy and hybrid
+backends alike (the whole-search device BFS is seal_records' hybrid arm,
+which bulk does not select).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from dataclasses import dataclass
 
 from ..bf_builder import BFBuilder
 from ..config import PipelineConfig
+from ..fill import sealer as sealer_mod
 from ..io import fasta, seqindex
 from ..mappings import AllMappings
 from ..polish import mask as mask_mod
@@ -193,24 +196,40 @@ def polish_batch_records(records, builder: BFBuilder, cfg: PipelineConfig,
     timing["ntedit_s"] = round(_time.monotonic() - t0, 3)
     stats["ntedit"] = mk_stats
     if cfg.run_sealer:
-        # 2.-3. mask + sealer gap fill: run_bulk refuses the config first
-        raise NotImplementedError(SEALER_NOT_PORTED)
-    sealed = edited
+        # 2. mask short runs (soft, k = first k)
+        prepped = [
+            (h, mask_mod.mask_short_runs(s, cfg.k_values[0], soft=True))
+            for h, s in edited
+        ]
+        # 3. sealer gap fill
+        scfg = sealer_mod.SealerConfig(
+            k_values=cfg.k_values,
+            flank_length=cfg.k_values[0],
+            max_gap_length=cfg.sealer_max_gap_length,
+            max_paths=cfg.sealer_max_paths,
+            max_branches=cfg.sealer_max_branches,
+            max_cost=cfg.sealer_max_cost,
+            verbose=cfg.verbose,
+        )
+        bfs_by_k = {k: batch_bfs.bf_for_k(k) for k in cfg.k_values}
+        t0 = _time.monotonic()
+        sealed, seal_stats = sealer_mod.seal_records(
+            prepped, bfs_by_k, scfg,
+            # the host search for numpy and hybrid alike, as the JAX
+            # package passes; its jax backend is not ported (check_ported)
+            backend="jax" if cfg.backend == "jax" else "numpy",
+        )
+        timing["sealer_s"] = round(_time.monotonic() - t0, 3)
+        stats["sealer"] = seal_stats
+    else:
+        sealed = edited
     # 4. uppercase
     final = [(h, mask_mod.to_upper(s)) for h, s in sealed]
     return BatchResult(records=final, stats=stats)
 
 
-SEALER_NOT_PORTED = (
-    "sealer not ported yet (ROADMAP.md queue 1): run with run_sealer=False "
-    "(--no-sealer)"
-)
-
-
 def check_ported(cfg: PipelineConfig) -> None:
     """Refuse, at startup, a configuration this port cannot run yet."""
-    if cfg.run_sealer:
-        raise NotImplementedError(SEALER_NOT_PORTED)
     if cfg.device_bf_build or cfg.fill_overlap:
         raise NotImplementedError(
             "the device Bloom fill (device_bf_build / --fill-overlap, K3) is "

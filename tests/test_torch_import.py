@@ -24,8 +24,15 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if m.startswith("goldpolish_tpu.") or m == "goldpolish_tpu")
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
+
+# the modules each slice added; every one must be among those imported
+_SLICE_MODULES = [
+    "ops.scan_conv", "ops.bloom_probe", "polish.ntedit_gpu", "pipeline.bulk",
+    "ops.kmers", "ops.dbg_bfs", "fill", "fill.nw", "fill.konnector",
+    "fill.extend", "fill.sealer", "polish.reports",
+]
 
 
 def test_every_module_imports_without_jax():
@@ -34,7 +41,10 @@ def test_every_module_imports_without_jax():
         capture_output=True, text=True, timeout=300, cwd=ROOT,
     )
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip().splitlines()[-1]) >= 25
+    names = res.stdout.strip().splitlines()[-1].split()
+    assert len(names) >= 38
+    missing = [m for m in _SLICE_MODULES if f"goldpolish_tpu_torch.{m}" not in names]
+    assert not missing, missing
 
 
 def test_no_jax_import_in_source():

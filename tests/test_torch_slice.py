@@ -1,12 +1,14 @@
 """The port's bulk slice end to end against the JAX package, on the CPU.
 
-run_bulk and cli.main of goldpolish_tpu_torch (sealer off; backend numpy,
-and backend hybrid with the plain torch scan on device="cpu" forced on with
-GPTPU_FORCE_DEVICE_SCAN) must write the same bytes as the JAX package's
-run_bulk with the same config and backend numpy.  The JAX package's own
-hybrid would shard over the conftest mesh's 8 CPU devices and arm the
-fused eval; tests/test_backend_invariance.py already pins its backends
-equal."""
+run_bulk and cli.main of goldpolish_tpu_torch (backend numpy, and backend
+hybrid with the plain torch scan on device="cpu" forced on with
+GPTPU_FORCE_DEVICE_SCAN) must write, with the sealer on (the default),
+the bytes of tests/golden/expected_polished.fa that tests/test_golden.py
+pins for the JAX package, and with the sealer off the same bytes as the
+JAX package's run_bulk with the same config and backend numpy.  The JAX
+package's own hybrid would shard over the conftest mesh's 8 CPU devices and
+arm the fused eval; tests/test_backend_invariance.py already pins its
+backends equal."""
 
 import os
 
@@ -21,6 +23,7 @@ from goldpolish_tpu.polish import ntedit_oracle as jne
 from goldpolish_tpu.polish.ntedit_tpu import NtEditTPU
 from goldpolish_tpu_torch import cli
 from goldpolish_tpu_torch.config import PipelineConfig
+from goldpolish_tpu_torch.io import fasta
 from goldpolish_tpu_torch.ops import bloom, scan_conv
 from goldpolish_tpu_torch.pipeline import bulk
 from goldpolish_tpu_torch.polish import ntedit_oracle as ne
@@ -30,7 +33,7 @@ from goldpolish_tpu_torch.polish.ntedit_gpu import NtEditGPU
 GOLD = os.path.join(os.path.dirname(__file__), "golden")
 
 
-def _golden(config_cls, out_dir, concurrency, **kw):
+def _golden(config_cls, out_dir, concurrency, run_sealer=False, **kw):
     return config_cls(
         seqs_to_polish=os.path.join(GOLD, "draft.fa"),
         polishing_seqs=os.path.join(GOLD, "reads.fq"),
@@ -40,9 +43,14 @@ def _golden(config_cls, out_dir, concurrency, **kw):
         mappings_path=os.path.join(GOLD, "map.paf"),
         workspace=os.path.join(out_dir, "ws"),
         max_concurrent_batches=concurrency,
-        run_sealer=False,
+        run_sealer=run_sealer,
         **kw,
     )
+
+
+def _expected_golden() -> bytes:
+    with open(os.path.join(GOLD, "expected_polished.fa"), "rb") as f:
+        return f.read()
 
 
 def _jax_bytes(tmp_path, concurrency):
@@ -72,6 +80,62 @@ def test_run_bulk_matches_jax_package(tmp_path, monkeypatch, backend,
         assert f.read() == want
     scanned = scan_conv.scan_present_packed_reference.calls.value - calls
     assert (scanned > 0) == (backend == "hybrid")
+
+
+@pytest.mark.parametrize("concurrency", [1, 3])
+@pytest.mark.parametrize("backend", ["numpy", "hybrid"])
+def test_run_bulk_with_sealer_matches_golden(tmp_path, monkeypatch, backend,
+                                             concurrency):
+    """The default chain (ntEdit -> mask -> sealer -> upper) reproduces the
+    golden bytes (the config of tests/test_golden.py)."""
+    if backend == "hybrid":
+        monkeypatch.setenv("GPTPU_FORCE_DEVICE_SCAN", "1")
+    cfg = _golden(PipelineConfig, str(tmp_path), concurrency, run_sealer=True,
+                  backend=backend, device="cpu")
+    totals = bulk.run_bulk(cfg)
+    assert totals["contigs"] == 4
+    assert "sealer_s" in totals["timing"]
+    with open(cfg.output_seqs, "rb") as f:
+        assert f.read() == _expected_golden()
+
+
+def _one_batch(pkg_bulk, cfg, workspace):
+    target_index, reads_index = pkg_bulk.build_indexes(cfg, workspace)
+    builder = pkg_bulk.BFBuilder(
+        target_index, reads_index, pkg_bulk.resolve_mappings(cfg, target_index),
+        cfg.k_values, hash_num=cfg.hash_num, cbf_bytes=cfg.cbf_bytes,
+        bf_bytes=cfg.bf_bytes,
+        subsample_max_mapped_seqs_per_target_10kbp=cfg.resolved_subsample(),
+    )
+    records = [(r.name, r.seq) for r in fasta.read_seqs(cfg.seqs_to_polish)][:2]
+    return pkg_bulk.polish_batch_records(records, builder, cfg)
+
+
+def test_polish_batch_records_reports_sealer_stats(tmp_path):
+    """One batch through the chain: records, sealer stats and stage timings
+    as the JAX package reports them."""
+    got = _one_batch(bulk, _golden(PipelineConfig, str(tmp_path), 1, run_sealer=True),
+                     str(tmp_path))
+    want = _one_batch(jax_bulk, _golden(JaxConfig, str(tmp_path), 1, run_sealer=True),
+                      str(tmp_path))
+    assert got.records == want.records
+    assert got.stats["sealer"] == want.stats["sealer"]
+    assert vars(got.stats["ntedit"]) == vars(want.stats["ntedit"])
+    assert set(got.stats["timing"]) == set(want.stats["timing"])
+    assert "sealer_s" in got.stats["timing"]
+
+
+def test_cli_default_sealer_matches_golden(tmp_path):
+    out = str(tmp_path / "cli.fa")
+    rc = cli.main([
+        os.path.join(GOLD, "draft.fa"), os.path.join(GOLD, "reads.fq"), out,
+        "-k", "32", "-k", "28", "-b", "2",
+        "--mappings", os.path.join(GOLD, "map.paf"),
+        "-m", str(tmp_path / "ws"),
+    ])
+    assert rc == 0
+    with open(out, "rb") as f:
+        assert f.read() == _expected_golden()
 
 
 def test_cli_hybrid_no_sealer_matches_jax_package(tmp_path, monkeypatch):
@@ -131,10 +195,6 @@ def test_pipelined_polish_many_shape_fuzz(monkeypatch):
 
 def test_unported_paths_refuse(tmp_path, monkeypatch):
     cfg = _golden(PipelineConfig, str(tmp_path), 1)
-    cfg.run_sealer = True
-    with pytest.raises(NotImplementedError, match="sealer not ported"):
-        bulk.run_bulk(cfg)
-    cfg.run_sealer = False
     cfg.fill_overlap = True
     with pytest.raises(NotImplementedError, match="device Bloom fill"):
         bulk.run_bulk(cfg)
