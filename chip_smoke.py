@@ -13,18 +13,29 @@ raises and the script exits non-zero without the result line.
             library (g++) from the checkout; seconds for each.
 3. kernels  each kernel against its plain torch version on the card, on the
             same inputs, required bit-equal (tolerance 0: integer hashing):
-            probe_lo32 on [2^21, 4] against a 4 MiB filter, and
-            scan_present_packed on [4, 2^19 + k - 1] mixed-alphabet codes
-            for k in 32, 28, 24, 20.  Times from CUDA events after warm-up.
+            probe_lo32 on [2^21, 4] against a 4 MiB filter,
+            scan_present_packed on [4, 2^19 + k - 1] mixed-alphabet codes,
+            and scan_eval (the fused phase-A eval) on [4, 2^18 + k - 1] rows
+            cut from a mutated 1.05 Mbp draft, (a) against a 4 MiB filter of
+            its truth's k-mers (bulk's per-batch filter: heads under S) and
+            (b) with an N every 100th byte against the p = 0.75 filter
+            (heads above S = 4096, needing sites above s_ins = 1024), all
+            nine outputs; each for k in 32, 28, 24, 20.  Times from CUDA
+            events after warm-up.
 4. main     a seeded synthetic genome of 4,641,652 bp (the length of E. coli
             K-12 MG1655) in 4 contigs, mutated every ~700 bp (sub/ins/del)
             with a 60-bp `n` gap every 50 kbp (92 gaps), covered by
             simulated reads with a PAF, polished by the CLI's default chain
-            (ntEdit -> mask -> sealer -> upper) twice: `--backend hybrid
-            -k 32 -k 28 -k 24 -k 20 -b 1` with GPTPU_FORCE_DEVICE_SCAN=1,
-            then `--backend numpy`.  Requires byte-identical outputs,
-            scan-kernel launches > 0 and no plain-version call during the
-            hybrid run; prints the sealer's seconds and gaps found / closed.
+            (ntEdit -> mask -> sealer -> upper) three times: `--backend
+            hybrid -k 32 -k 28 -k 24 -k 20 -b 1` with
+            GPTPU_FORCE_DEVICE_SCAN=1 and the fused eval armed (the
+            default), the same with GPTPU_DEVICE_EVAL=0 (the dense scan
+            alone), then `--backend numpy`.  Requires byte-identical
+            outputs; the eval arm: scan_eval launches > 0, walker table
+            hits > 0; the eval-off arm: scan kernel launches > 0; no
+            plain-version call in either.  Prints each arm's wall time,
+            ntEdit stage sum, table hits / giveups, and the sealer's seconds
+            and gaps found / closed.
 5. sealer   the sealer stage alone, on the 4.64 Mbp truth with a 60-bp
             lowercase gap every 18 kbp (256 gaps) and 16 MiB filters of the
             truth's k-mers at k = 32, 28, 24, 20 (h = 4): seal_records with
@@ -36,8 +47,9 @@ raises and the script exits non-zero without the result line.
             required equal as per-direction (k-mer, mask) sets.
 
 Then a {"kernels": [...]} line (launches counted on the path each kernel
-serves: the main path for the scan, phase 5 for the BFS; the probe is fused
-into both and launches nothing on its own), and last the line
+serves: the main path's eval arm for scan_eval, its eval-off arm for the
+scan, phase 5 for the BFS; the probe is fused into all three and launches
+nothing on its own), and last the line
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
@@ -48,6 +60,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -58,6 +71,8 @@ N_CONTIGS = 4
 K_VALUES = [32, 28, 24, 20]
 FILTER_BITS = 1 << 25  # 4 MiB, the size the main path's batches autoscale to
 SEED = 20261016
+EVAL_ROW = 1 << 18  # scan_eval's call shape on the main path: [4, 2^18 + k - 1]
+EVAL_S_MAX = 4096   # the editor's s_max (polish/ntedit_gpu.py)
 MAIN_GAP_EVERY = 50_000  # one 60-bp n gap per 50 kbp of draft (tests/refscale.py:44-46)
 SEALER_GAP_EVERY = 18_000  # the sealer phase: one 60-bp lowercase gap per 18 kbp
 GAP_LEN = 60
@@ -170,6 +185,80 @@ def phase_kernels(rng):
     return probe, scans
 
 
+def mutate(t: str, rng) -> list[str]:
+    """Mixed sub/ins/del every ~700 bp (tests/refscale.py:31-49), as one
+    string per truth position."""
+    d = list(t)
+    for p in range(300, len(t) - 300, 701):
+        kind = p % 3
+        if kind == 0:
+            d[p] = "ACGT"[("ACGT".index(d[p]) + 1 + int(rng.integers(3))) % 4]
+        elif kind == 1:
+            d[p] = ""
+        else:
+            d[p] = d[p] + "ACGT"[int(rng.integers(4))]
+    return d
+
+
+def phase_scan_eval(rng):
+    """scan_eval (kernel 4) against its plain version at the main path's
+    call shape, for every k, on two filters (see the module docstring)."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import bloom
+    from goldpolish_tpu_torch.ops import nthash as nt
+    from goldpolish_tpu_torch.ops import scan_eval as se
+    from goldpolish_tpu_torch.ops import siteeval
+    from goldpolish_tpu_torch.polish.multik import ntedit_config_for_k
+
+    dev = torch.device("cuda")
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    truth = acgt[rng.integers(0, 4, 4 * EVAL_ROW + 2000)].tobytes().decode()
+    draft = np.frombuffer("".join(mutate(truth, rng)).encode(), np.uint8)
+    truth = np.frombuffer(truth.encode(), np.uint8)
+    p75 = torch.from_numpy(random_words(rng, FILTER_BITS)).to(dev)
+    rows_out = []
+    for k in K_VALUES:
+        cfg = ntedit_config_for_k(k)
+        ecfg = se.EvalConfig(k=k, h=4, jump=cfg.jump, max_ins=cfg.max_insertions,
+                             max_del=cfg.max_deletions, thr_edit=cfg.thr_edit,
+                             thr_missing=cfg.thr_missing, s_max=EVAL_S_MAX)
+        tables = siteeval.make_tables(k, cfg.jump, cfg.max_insertions,
+                                      cfg.max_deletions)
+        bf = bloom.BloomFilter(FILTER_BITS // 8, 4, k)
+        bf.insert(nt.multi_hashes(nt.canonical_hashes(truth, k), k, 4))
+        words = torch.from_numpy(bf.words_u32().view(np.int32).copy()).to(dev)
+        rows = np.stack([draft[i * EVAL_ROW : (i + 1) * EVAL_ROW + k - 1]
+                         for i in range(4)])
+        broken = rows.copy()
+        broken[:, ::100] = ord("N")
+        for label, filt, codes in (("truth", words, rows), ("p75_n100", p75, broken)):
+            codes = torch.from_numpy(codes).to(dev)
+            got = se.scan_eval(filt, FILTER_BITS, 4, codes, ecfg, tables)
+            want = se.scan_eval_reference(filt, FILTER_BITS, 4, codes, ecfg, tables)
+            site, lane, ok = (t.cpu().numpy() for t in (want[2], want[6], want[7]))
+            needing = (site >= 0) & (lane >= 0)
+            row = {
+                "k": k, "filter": label, "shape": list(codes.shape),
+                "n_sites": int(want[1].item()), "needing": int(needing.sum()),
+                "ins_ok_0": int((needing & (ok == 0)).sum()),
+                "equal": all(g.shape == w.shape and torch.equal(g, w)
+                             for g, w in zip(got, want)),
+                "max_abs_err": max(
+                    int((g.to(torch.int64) - w.to(torch.int64)).abs().max().item())
+                    if w.numel() else 0 for g, w in zip(got, want)),
+                "ms": time_ms(lambda: se.scan_eval(filt, FILTER_BITS, 4, codes,
+                                                   ecfg, tables), 20),
+                "plain_ms": time_ms(lambda: se.scan_eval_reference(
+                    filt, FILTER_BITS, 4, codes, ecfg, tables), 3, warm=1),
+            }
+            rows_out.append(row)
+            emit(phase="kernel_scan_eval", **row)
+            if not row["equal"]:
+                raise AssertionError(f"scan_eval disagrees with plain at k={k} ({label})")
+    return rows_out
+
+
 def make_inputs(rng, work: str):
     """Truth genome, mutated draft, simulated reads + PAF (files in work)."""
     sizes = [GENOME_BP // N_CONTIGS] * N_CONTIGS
@@ -182,15 +271,7 @@ def make_inputs(rng, work: str):
     # mixed sub/ins/del every ~700 bp and n gaps (tests/refscale.py:31-49)
     drafts = []
     for name, t in truths:
-        d = list(t)
-        for p in range(300, len(t) - 300, 701):
-            kind = p % 3
-            if kind == 0:
-                d[p] = "ACGT"[("ACGT".index(d[p]) + 1 + int(rng.integers(3))) % 4]
-            elif kind == 1:
-                d[p] = ""
-            else:
-                d[p] = d[p] + "ACGT"[int(rng.integers(4))]
+        d = mutate(t, rng)
         for p in range(MAIN_GAP_EVERY // 2, len(t) - MAIN_GAP_EVERY // 2,
                        MAIN_GAP_EVERY):
             d[p : p + GAP_LEN] = ["n"] * GAP_LEN
@@ -234,8 +315,9 @@ def read_fasta(path: str) -> list[tuple[str, str]]:
 
 
 class SealerTally:
-    """Sums each batch's sealer stats while the CLI runs: wraps
-    bulk.polish_batch_records, which run_bulk looks up per batch."""
+    """Sums each batch's sealer stats and ntEdit stage seconds while the CLI
+    runs: wraps bulk.polish_batch_records, which run_bulk looks up per
+    batch (batches run on several threads)."""
 
     def __init__(self):
         from goldpolish_tpu_torch.pipeline import bulk
@@ -243,13 +325,16 @@ class SealerTally:
         self.bulk = bulk
         self.inner = bulk.polish_batch_records
         self.gaps_found = self.gaps_closed = 0
-        self.sealer_s = 0.0
+        self.sealer_s = self.ntedit_s = 0.0
+        self._lock = threading.Lock()
 
     def __call__(self, *args, **kw):
         res = self.inner(*args, **kw)
-        self.gaps_found += res.stats["sealer"]["gaps_found"]
-        self.gaps_closed += res.stats["sealer"]["gaps_closed"]
-        self.sealer_s += res.stats["timing"]["sealer_s"]
+        with self._lock:
+            self.gaps_found += res.stats["sealer"]["gaps_found"]
+            self.gaps_closed += res.stats["sealer"]["gaps_closed"]
+            self.sealer_s += res.stats["timing"]["sealer_s"]
+            self.ntedit_s += res.stats["timing"]["ntedit_s"]
         return res
 
     def __enter__(self):
@@ -260,11 +345,39 @@ class SealerTally:
         self.bulk.polish_batch_records = self.inner
 
 
+class WalkTally:
+    """Sums the native walk's table hits and give-ups while the CLI runs:
+    wraps native.polish_contig, which the editor looks up per contig."""
+
+    def __init__(self):
+        from goldpolish_tpu_torch import native
+
+        self.native = native
+        self.inner = native.polish_contig
+        self.hits = self.giveups = 0
+        self._lock = threading.Lock()
+
+    def __call__(self, *args, **kw):
+        res = self.inner(*args, **kw)
+        with self._lock:
+            self.hits += res[2].n_table_hits
+            self.giveups += res[2].n_table_giveups
+        return res
+
+    def __enter__(self):
+        self.native.polish_contig = self
+        return self
+
+    def __exit__(self, *exc):
+        self.native.polish_contig = self.inner
+
+
 def phase_main(rng):
     from goldpolish_tpu_torch import cli
     from goldpolish_tpu_torch.io import seqindex
     from goldpolish_tpu_torch.ops import bloom_probe as bp
     from goldpolish_tpu_torch.ops import scan_conv as sc
+    from goldpolish_tpu_torch.ops import scan_eval as se
 
     work = os.path.join(ROOT, "goldpolish_tpu_torch", "build", f"smoke_{os.getpid()}")
     os.makedirs(work)
@@ -272,74 +385,86 @@ def phase_main(rng):
         t0 = time.monotonic()
         truths, draft_bp, draft, reads, paf, n_reads = make_inputs(rng, work)
         # index both inputs up front (the CLI caches `<input>.index`), so the
-        # two timed runs below do the same work
+        # timed runs below do the same work
         for path in (draft, reads):
             seqindex.SeqIndex.build(path).save(path + ".index")
         emit(phase="inputs", genome_bp=GENOME_BP, contigs=N_CONTIGS,
              draft_bp=draft_bp, reads=n_reads, seconds=time.monotonic() - t0)
 
-        def polish(backend: str):
-            out = os.path.join(work, f"polished_{backend}.fa")
+        def polish(name: str, backend: str, env: dict):
+            out = os.path.join(work, f"polished_{name}.fa")
             argv = [draft, reads, out, "--mappings", paf, "-b", "1",
-                    "-m", os.path.join(work, f"ws_{backend}"),
+                    "-m", os.path.join(work, f"ws_{name}"),
                     "--backend", backend]
             for k in K_VALUES:
                 argv += ["-k", str(k)]
-            t = time.monotonic()
-            with SealerTally() as tally:
-                rc = cli.main(argv)
-            wall = time.monotonic() - t
+            saved = {key: os.environ.pop(key, None) for key in env}
+            os.environ.update({key: v for key, v in env.items() if v is not None})
+            for c in counters.values():
+                c.reset()
+            try:
+                t = time.monotonic()
+                with SealerTally() as tally, WalkTally() as walk:
+                    rc = cli.main(argv)
+                wall = time.monotonic() - t
+            finally:
+                for key, v in saved.items():
+                    os.environ.pop(key, None)
+                    if v is not None:
+                        os.environ[key] = v
+            counts = {key: c.value for key, c in counters.items()}
             if rc != 0:
-                raise RuntimeError(f"cli.main ({backend}) returned {rc}")
+                raise RuntimeError(f"cli.main ({name}) returned {rc}")
             with open(out, "rb") as f:
                 data = f.read()
             recs = read_fasta(out)
             truth = dict(truths)
             exact = sum(1 for n, s in recs if s.upper() == truth.get(n))
-            return data, wall, recs, exact, tally
+            emit(phase=f"main_{name}", wall_s=wall,
+                 polished_bases_per_s=draft_bp / wall,
+                 contigs=len(recs), contigs_equal_truth=exact,
+                 share_equal_truth=exact / N_CONTIGS, ntedit_s=tally.ntedit_s,
+                 sealer_s=tally.sealer_s, gaps_found=tally.gaps_found,
+                 gaps_closed=tally.gaps_closed, table_hits=walk.hits,
+                 table_giveups=walk.giveups, **counts,
+                 plain_calls=sum(v for key, v in counts.items() if key.startswith("plain")))
+            return data, recs, tally, walk, counts
 
-        counters = [sc.scan_present_packed.launches, bp.probe_lo32.launches,
-                    sc.scan_present_packed_reference.calls,
-                    bp.probe_lo32_reference.calls]
-        for c in counters:
-            c.reset()
-        os.environ["GPTPU_FORCE_DEVICE_SCAN"] = "1"
-        try:
-            hy, hy_wall, hy_recs, hy_exact, hy_seal = polish("hybrid")
-        finally:
-            os.environ.pop("GPTPU_FORCE_DEVICE_SCAN", None)
-        launches, probe_launches, plain_scan, plain_probe = (
-            c.value for c in counters
-        )
-        emit(phase="main_hybrid", wall_s=hy_wall,
-             polished_bases_per_s=draft_bp / hy_wall,
-             contigs=len(hy_recs), contigs_equal_truth=hy_exact,
-             share_equal_truth=hy_exact / N_CONTIGS,
-             sealer_s=hy_seal.sealer_s, gaps_found=hy_seal.gaps_found,
-             gaps_closed=hy_seal.gaps_closed,
-             scan_kernel_launches=launches, probe_kernel_launches=probe_launches,
-             plain_calls=plain_scan + plain_probe)
-        np_bytes, np_wall, np_recs, np_exact, np_seal = polish("numpy")
-        emit(phase="main_numpy", wall_s=np_wall,
-             polished_bases_per_s=draft_bp / np_wall,
-             contigs=len(np_recs), contigs_equal_truth=np_exact,
-             share_equal_truth=np_exact / N_CONTIGS,
-             sealer_s=np_seal.sealer_s, gaps_found=np_seal.gaps_found,
-             gaps_closed=np_seal.gaps_closed)
-        identical = hy == np_bytes
-        emit(phase="main_check", hybrid_equals_numpy=identical,
-             output_bytes=len(hy))
+        counters = {
+            "scan_eval_launches": se.scan_eval.launches,
+            "scan_kernel_launches": sc.scan_present_packed.launches,
+            "probe_kernel_launches": bp.probe_lo32.launches,
+            "plain_scan_eval": se.scan_eval_reference.calls,
+            "plain_scan": sc.scan_present_packed_reference.calls,
+            "plain_probe": bp.probe_lo32_reference.calls,
+        }
+        force = {"GPTPU_FORCE_DEVICE_SCAN": "1"}
+        hy, hy_recs, hy_seal, hy_walk, on = polish(
+            "hybrid", "hybrid", {**force, "GPTPU_DEVICE_EVAL": None})
+        off_bytes, _r, _t, _w, off = polish(
+            "hybrid_eval_off", "hybrid", {**force, "GPTPU_DEVICE_EVAL": "0"})
+        np_bytes, _r, _t, _w, _c = polish("numpy", "numpy", {})
+        identical = hy == np_bytes and off_bytes == np_bytes
+        emit(phase="main_check", hybrid_equals_numpy=hy == np_bytes,
+             eval_off_equals_numpy=off_bytes == np_bytes, output_bytes=len(hy))
         if not identical:
-            raise AssertionError("hybrid output differs from the numpy backend")
+            raise AssertionError("a hybrid arm's output differs from the numpy backend")
         if len(hy_recs) != N_CONTIGS:
             raise AssertionError(f"{len(hy_recs)} contigs out, {N_CONTIGS} in")
         if hy_seal.gaps_found <= 0:
             raise AssertionError("the sealer found no gap on the main path")
-        if launches <= 0:
-            raise AssertionError("the main path launched no scan kernel")
-        if plain_scan or plain_probe:
-            raise AssertionError("a plain version ran during the CUDA run")
-        return launches, probe_launches, truths
+        if on["scan_eval_launches"] <= 0:
+            raise AssertionError("the main path launched no scan_eval kernel")
+        if hy_walk.hits <= 0:
+            raise AssertionError("the walker replayed no site from the eval's tables")
+        if off["scan_kernel_launches"] <= 0 or off["scan_eval_launches"]:
+            raise AssertionError("the eval-off arm did not run the scan kernel alone")
+        if any(c[key] for c in (on, off) for key in c if key.startswith("plain")):
+            raise AssertionError("a plain version ran during a CUDA run")
+        launches = {"scan_eval": on["scan_eval_launches"],
+                    "scan_present_packed": off["scan_kernel_launches"],
+                    "probe_lo32": on["probe_kernel_launches"]}
+        return launches, truths
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -540,15 +665,25 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     probe, scans = phase_kernels(rng)
-    launches, probe_launches, truths = phase_main(rng)
+    # its own generator, so the other phases keep their inputs
+    evals = phase_scan_eval(np.random.default_rng(SEED + 1))
+    launches, truths = phase_main(rng)
     bfs_launches, bfs_rows = phase_sealer(truths)
     first = scans[0]
     print(json.dumps({"kernels": [
         {
+            "name": "scan_eval", "route": "cuda",
+            "source": "goldpolish_tpu_torch/csrc/scan_eval.cu",
+            "replaces": "goldpolish_tpu/ops/scan_eval.py:235",
+            "launches": launches["scan_eval"],
+            "max_abs_err": max(r["max_abs_err"] for r in evals),
+            "ms": evals[0]["ms"], "plain_ms": evals[0]["plain_ms"],
+        },
+        {
             "name": "scan_present_packed", "route": "cuda",
             "source": "goldpolish_tpu_torch/csrc/scan_conv.cu",
             "replaces": "goldpolish_tpu/ops/scan_conv.py:228",
-            "launches": launches,
+            "launches": launches["scan_present_packed"],
             "max_abs_err": max(r["max_abs_err"] for r in scans),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
         },
@@ -556,8 +691,8 @@ def main() -> int:
             "name": "probe_lo32", "route": "cuda",
             "source": "goldpolish_tpu_torch/csrc/bloom_probe.cu",
             "replaces": "goldpolish_tpu/ops/bloom_pallas.py:345",
-            "launches": probe_launches,
-            "fused_into": ["scan_present_packed", "dbg_bfs"],
+            "launches": launches["probe_lo32"],
+            "fused_into": ["scan_eval", "scan_present_packed", "dbg_bfs"],
             "max_abs_err": probe["max_abs_err"],
             "ms": probe["ms"], "plain_ms": probe["plain_ms"],
         },

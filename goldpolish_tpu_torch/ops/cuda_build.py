@@ -67,7 +67,7 @@ def _build() -> str:
     global build_log
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
-    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
              "-Xptxas", "-v", "-I", CSRC]
     digest = hashlib.sha256(" ".join(flags).encode())
     for path in sources + headers:
@@ -78,11 +78,26 @@ def _build() -> str:
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so_path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *flags, *sources, "-o", tmp]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    nvcc = _nvcc()
+    # one nvcc per source, all started together, then one link
+    objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+    procs = [
+        subprocess.Popen([nvcc, *flags, "-c", src, "-o", obj], stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(sources, objs)
+    ]
+    build_log = "".join(p.communicate(timeout=600)[0] for p in procs)
+    rcs = [p.returncode for p in procs]
+    if not any(rcs):
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", *objs, "-o", tmp],
+                              capture_output=True, text=True, timeout=600)
+        build_log += link.stdout + link.stderr
+        rcs.append(link.returncode)
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if any(rcs):
+        raise RuntimeError(f"nvcc failed ({rcs}):\n{build_log}")
     os.replace(tmp, so_path)
     return so_path
 
@@ -94,8 +109,8 @@ def lib() -> ctypes.CDLL:
         if _LIB is not None:
             return _LIB
         L = ctypes.CDLL(_build())
-        vp, i32, i64, u64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                             ctypes.c_uint64)
+        vp, i32, i64, u64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                                  ctypes.c_uint64, ctypes.c_float)
         L.gp_probe_lo32.argtypes = [vp, u64, vp, i64, i32, vp, vp]
         L.gp_probe_lo32.restype = i32
         L.gp_scan_present_packed.argtypes = [
@@ -109,6 +124,14 @@ def lib() -> ctypes.CDLL:
         L.gp_dbg_bfs.restype = i32
         L.gp_dbg_bfs_smem_bytes.argtypes = [i32, i32]
         L.gp_dbg_bfs_smem_bytes.restype = i64
+        L.gp_scan_eval.argtypes = [
+            vp, u64, i32, i32, i32, i32, i32, f32, f32, i32, i32, i32, i32,
+            vp, i64, i64, vp, vp, vp, u64, vp, vp, vp,
+            vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+        ]
+        L.gp_scan_eval.restype = i32
+        L.gp_scan_eval_scratch_bytes.argtypes = [i64, i64, i32, i32, i32]
+        L.gp_scan_eval_scratch_bytes.restype = i64
         _LIB = L
         return L
 

@@ -28,9 +28,11 @@ the JAX scan, both toward the host filter that the walker probes:
 CUDA tensors and runs `scan_present_packed_reference`, the plain torch
 version on int64 lanes (ops/u64.py), for CPU tensors.
 
-Left out of this port, each listed in ROADMAP.md: the mesh sharding
-(:333-375), the fused phase-A eval (`enable_eval` :378-458, K2) and the
-2-bit packed transfer (`scan_packed2` :498-527).
+`DeviceScanner.enable_eval` arms the fused phase-A eval of ops/scan_eval.py
+(K2, the JAX scanner's `enable_eval` :378-458); `scan_eval_packed` then runs
+it.  Left out of this port, each listed in ROADMAP.md: the mesh sharding
+(:333-375, and the eval's shard_map :399-423, so `eval_shards` is always 1;
+K9) and the 2-bit packed transfer (`scan_packed2` :498-527).
 """
 
 from __future__ import annotations
@@ -92,14 +94,11 @@ def pack_bits(pres: torch.Tensor) -> torch.Tensor:
     return grouped.sum(dim=-1).to(torch.uint8)
 
 
-def scan_present_packed_reference(words: torch.Tensor, bits: int, h: int, k: int,
-                                  codes: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of the fused scan (any device)."""
-    scan_present_packed_reference.calls.add()
+def strand_hashes_reference(codes: torch.Tensor, k: int):
+    """(fh, rh) int64 [B, L-k+1] of every window of codes [B, L] (L >= k),
+    from the XOR tables of the kernel."""
     b, length = codes.shape
     nw = length - k + 1
-    if nw <= 0:
-        return torch.zeros(b, 0, dtype=torch.uint8, device=codes.device)
     tf, tr, fclass = _device_tables(k, str(codes.device))
     tf5 = torch.cat([tf, tf.new_zeros(k, 1)], dim=1)  # class 4 -> no seed
     c = codes.to(torch.int64)
@@ -110,18 +109,36 @@ def scan_present_packed_reference(words: torch.Tensor, bits: int, h: int, k: int
     for j in range(k):
         fh ^= tf5[j][clsf[:, j : j + nw]]
         rh ^= tr[j][clsr[:, j : j + nw]]
-    base = fh + rh
-    words = words.to(torch.int64)
+    return fh, rh
+
+
+def probe_bit_reference(words64: torch.Tensor, bits: int,
+                        hv: torch.Tensor) -> torch.Tensor:
+    """The filter bit of each hash (words64: the int32 words as int64)."""
+    idx = hv & (bits - 1) if bits & (bits - 1) == 0 else u64.umod(hv, bits)
+    return ((words64[idx >> 5] >> (idx & 31)) & 1).bool()
+
+
+def probe_full_reference(words64: torch.Tensor, bits: int, base: torch.Tensor,
+                         k: int, h: int) -> torch.Tensor:
+    """All h hashes of each canonical base hash (any shape) present."""
     kmul = _kmul(k)
-    pres = torch.ones(b, nw, dtype=torch.bool, device=codes.device)
-    for i in range(h):
-        hv = base
-        if i:
-            t = base * u64.const(i ^ kmul)
-            hv = t ^ u64.lsr(t, nt.MULTI_SHIFT)
-        idx = hv & (bits - 1) if bits & (bits - 1) == 0 else u64.umod(hv, bits)
-        pres &= ((words[idx >> 5] >> (idx & 31)) & 1).bool()
-    return pack_bits(pres)
+    pres = probe_bit_reference(words64, bits, base)
+    for i in range(1, h):
+        t = base * u64.const(i ^ kmul)
+        pres &= probe_bit_reference(words64, bits, t ^ u64.lsr(t, nt.MULTI_SHIFT))
+    return pres
+
+
+def scan_present_packed_reference(words: torch.Tensor, bits: int, h: int, k: int,
+                                  codes: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the fused scan (any device)."""
+    scan_present_packed_reference.calls.add()
+    b, length = codes.shape
+    if length - k + 1 <= 0:
+        return torch.zeros(b, 0, dtype=torch.uint8, device=codes.device)
+    fh, rh = strand_hashes_reference(codes, k)
+    return pack_bits(probe_full_reference(words.to(torch.int64), bits, fh + rh, k, h))
 
 
 scan_present_packed_reference.calls = LaunchCounter()
@@ -205,21 +222,53 @@ class DeviceScanner:
         words = np.ascontiguousarray(words_u32, dtype="<u4").view(np.int32)
         self._words = torch.from_numpy(words.copy()).to(self.device)
 
+    # -- fused phase-A (scan + hot-site detect + candidate eval) ------------
+    def enable_eval(self, eval_cfg, site_tables, force: bool = False) -> None:
+        """Arm the fused scan+eval (ops/scan_eval.FusedEval) on the
+        scanner's device.  `force` is the JAX scanner's argument, kept for
+        its callers; it changes nothing, as there (one probe, no mesh)."""
+        from . import scan_eval
+
+        self._eval = scan_eval.FusedEval(eval_cfg, self.bits, site_tables,
+                                         self.device)
+
+    @property
+    def eval_enabled(self) -> bool:
+        return getattr(self, "_eval", None) is not None
+
+    @property
+    def eval_shards(self) -> int:
+        """Shard count of scan_eval_packed outputs: always 1 (the JAX
+        scanner's mesh, K9, is not ported)."""
+        return 1
+
+    def scan_eval_packed(self, codes, k: int):
+        """Fused scan+eval call: codes uint8 [R, L] (numpy or tensor) ->
+        the nine outputs of ops/scan_eval.FusedEval, as tensors on the
+        scanner's device.  On CUDA the kernels run asynchronously on the
+        current stream."""
+        if k != self._eval.cfg.k:
+            raise ValueError(f"eval armed for k={self._eval.cfg.k}, called with k={k}")
+        return self._eval(self._words, self._as_rows(codes))
+
     @property
     def preferred_rows(self) -> int:
         """Scan-call row count the pipeline should use."""
         return 4
 
-    def scan_packed(self, codes, k: int) -> torch.Tensor:
-        """codes uint8 [B, L] or [L] (numpy or tensor) -> packed presence
-        uint8 [B, ceil(nw/8)] on the scanner's device.  On CUDA the kernel
-        runs asynchronously on the current stream."""
+    def _as_rows(self, codes) -> torch.Tensor:
         if isinstance(codes, np.ndarray):
             codes = torch.from_numpy(np.ascontiguousarray(codes, np.uint8))
         if codes.dim() == 1:
             codes = codes[None, :]
-        codes = codes.to(self.device)
-        return scan_present_packed(self._words, self.bits, self.h, k, codes)
+        return codes.to(self.device)
+
+    def scan_packed(self, codes, k: int) -> torch.Tensor:
+        """codes uint8 [B, L] or [L] (numpy or tensor) -> packed presence
+        uint8 [B, ceil(nw/8)] on the scanner's device.  On CUDA the kernel
+        runs asynchronously on the current stream."""
+        return scan_present_packed(self._words, self.bits, self.h, k,
+                                   self._as_rows(codes))
 
     @staticmethod
     def unpack_present(packed: np.ndarray, nw: int) -> np.ndarray:

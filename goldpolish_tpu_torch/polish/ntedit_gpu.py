@@ -4,10 +4,12 @@ Port counterpart: goldpolish_tpu/polish/ntedit_tpu.py (class NtEditTPU ->
 NtEditGPU).  Backends "numpy" (host only) and "hybrid" (the dense scan on
 the device through polish/scanpipe.py, the native walk on the host); the
 JAX package's "jax" backend (device site eval, K7) raises until ported
-(ROADMAP.md queue 1).  The scanner is lazy and never arms the fused
-phase-A eval (K2, not ported).  The fork pool cannot serve a CUDA scanner
-(CUDA does not survive fork): processes > 1 on the pipelined path raises
-when the scanner is on CUDA.
+(ROADMAP.md queue 1).  The scanner is lazy; when it materializes it arms
+the fused phase-A eval (ops/scan_eval, K2) under GPTPU_DEVICE_EVAL (default
+on; "0" turns it off) with the JAX engine's conditions, and the walker then
+replays trials from the eval's tables.  The fork pool cannot serve a CUDA
+scanner (CUDA does not survive fork): processes > 1 on the pipelined path
+raises when the scanner is on CUDA.
 
 The reference edits each contig with a sequential rolling scan — one Bloom
 probe per position, branchy candidate trials at missing sites
@@ -379,10 +381,37 @@ class NtEditGPU:
         """Materialize the hybrid device scanner on first device use."""
         if self._scanner is not None or not getattr(self, "_scanner_lazy", False):
             return
+        import os as _os
+
         from ..ops import scan_conv
 
+        cfg = self.cfg
         self._scanner = scan_conv.DeviceScanner(self.bf, self.device)
         self._scanner_lazy = False
+        # fused phase-A (scan + detection + site eval on the device,
+        # ops/scan_eval): the walker then replays trials from tables — its
+        # heaviest per-site work — wherever the device's site prediction
+        # hit.  Constraints mirror the native replay's.
+        dev_eval = _os.environ.get("GPTPU_DEVICE_EVAL", "1")
+        if (
+            dev_eval != "0"
+            and cfg.mode in (0, 1) and not cfg.snv
+            and cfg.k <= 64 and cfg.h <= 16
+            and cfg.max_insertions <= 5 and cfg.max_deletions <= 7
+        ):
+            from ..ops.scan_eval import EvalConfig
+
+            self._scanner.enable_eval(
+                EvalConfig(
+                    k=cfg.k, h=cfg.h, jump=cfg.jump,
+                    max_ins=cfg.max_insertions,
+                    max_del=cfg.max_deletions,
+                    thr_edit=cfg.thr_edit,
+                    thr_missing=cfg.thr_missing, s_max=4096,
+                ),
+                self.tables,
+                force=dev_eval == "1",
+            )
 
     # -- persistent-pool state push -------------------------------------------
     def _bf_ref(self) -> tuple:
@@ -769,10 +798,27 @@ class NtEditGPU:
                 (i, np.frombuffer(s, np.uint8))
                 for i, s in enumerate(seqs) if i >= n_seed
             ]
-            pipe = ScanPipe(self._scanner, k, rows=self._scanner.preferred_rows)
+            eval_mode = self._scanner.eval_enabled
+            pipe = ScanPipe(
+                self._scanner, k, rows=self._scanner.preferred_rows,
+                # smaller calls in eval mode: the per-call site budget
+                # (s_max) must cover the call's error clusters
+                row_windows=(1 << 18) if eval_mode else None,
+            )
             pieces_map: dict[int, list] = {}
 
-            def submit(ci: int, present: np.ndarray | None):
+            def slice_tabs(tabs, a: int, piece_nw: int):
+                """Site-table rows for piece windows [a, a+piece_nw)."""
+                if tabs is None or not len(tabs[0]):
+                    return None
+                w = tabs[0]
+                lo = int(np.searchsorted(w, a))
+                hi = int(np.searchsorted(w, a + piece_nw))
+                if hi <= lo:
+                    return None
+                return ((w[lo:hi] - a),) + tuple(t[lo:hi] for t in tabs[1:])
+
+            def submit(ci: int, present: np.ndarray | None, tabs=None):
                 s = seqs[ci]
                 pieces = min(processes, max(1, -(-len(s) // shard_bases)))
                 cuts = []
@@ -794,17 +840,21 @@ class NtEditGPU:
                         pres_sub = present[a : b - k + 1]
                         packed = np.packbits(pres_sub, bitorder="little")
                         nw = len(pres_sub)
+                        ptabs = slice_tabs(tabs, a, nw)
                     else:
-                        packed, nw = None, 0
+                        packed, nw, ptabs = None, 0, None
                     plist.append((a, ex.submit(
                         _pm_task, blob, bf_ref, flags, sub, packed, nw,
+                        ptabs,
                     )))
                 pieces_map[ci] = plist
 
             for ci in seed_ids:
                 submit(ci, None)
-            for ci, present in pipe.run(jobs):
-                submit(ci, present if len(present) else None)
+            for item in pipe.run(jobs):
+                ci, present = item[0], item[1]
+                submit(ci, present if len(present) else None,
+                       item[2] if eval_mode else None)
             results: list = []
             for ci in range(len(seqs)):
                 out_b = b""
@@ -836,15 +886,21 @@ class NtEditGPU:
             (i, np.frombuffer(s, np.uint8))
             for i, s in enumerate(seqs) if i >= n_seed
         ]
-        pipe = ScanPipe(self._scanner, k, rows=self._scanner.preferred_rows)
+        eval_mode = self._scanner.eval_enabled
+        pipe = ScanPipe(
+            self._scanner, k, rows=self._scanner.preferred_rows,
+            row_windows=(1 << 18) if eval_mode else None,
+        )
         gen = pipe.run(jobs)
         out: list = [
             self.polish_contig(seqs[i]) for i in range(n_seed)
         ]
-        for ci, present in gen:
+        for item in gen:
+            ci, present = item[0], item[1]
             out.append(
                 self.polish_contig(
                     seqs[ci], present=present if len(present) else None,
+                    site_tables=item[2] if eval_mode else None,
                 )
             )
         return out

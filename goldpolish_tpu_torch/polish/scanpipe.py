@@ -19,17 +19,23 @@ windows spanning a segment boundary are sliced off by the segment map).
 
 Asynchrony on CUDA: JAX hands back un-fetched arrays; in torch a pageable
 copy or `.cpu()` blocks.  So each pipe owns one CUDA stream and DEPTH + 2
-pinned host staging slots (codes in, packed presence out) — one per call
-that can be live at once: DEPTH + 1 in flight plus the one being consumed.
-A call fills its slot's codes, then on the pipe's stream copies them to
-the device (non_blocking), launches the scan, copies the packed bits back
+pinned host staging slots (codes in, outputs back) — one per call that can
+be live at once: DEPTH + 1 in flight plus the one being consumed.  A call
+fills its slot's codes, then on the pipe's stream copies them to the
+device (non_blocking), launches the scan, copies its outputs back
 (non_blocking) and records an event; the consumer waits on that event
 only.  Pipes never share a slot, so batches polishing on several threads
 (pipeline/bulk.py) cannot overwrite each other's buffers.
 
-The fused scan+eval branch of the JAX pipe (K2, scanpipe.py:132-135,
-:220-248, :259-283) and its 2-bit packed transfer (:136-153) are not
-ported (ROADMAP.md); the raw transfer gives the same bits.
+Eval mode (the scanner's fused phase-A eval armed, ops/scan_eval): each
+call runs scan_eval_packed instead of the plain scan, the slot holds one
+pinned buffer per output (nine), all nine copies run on the pipe's stream
+before the call's event, and the generator yields (job_id, present,
+tables), the tables being the interior sites of the job's segments
+(window-relative, the drop rule of the JAX pipe, scanpipe.py:259-291).
+The JAX pipe's mesh merge (:223-248) has no counterpart: the port's
+scanner has one shard (`eval_shards` is 1).  The 2-bit packed transfer
+(:136-153) is not ported (ROADMAP.md); the raw transfer gives the same bits.
 
 Replaces the reference's one-rolling-probe-per-position inner loop
 (reference: subprojects/ntedit/ntedit.cpp:1414-1486) as the production
@@ -65,27 +71,28 @@ class _Call:
 
 
 class _Pending:
-    """One dispatched call: its packed presence, ready once `event` is."""
+    """One dispatched call: its host outputs (numpy), ready once `event` is."""
 
-    def __init__(self, packed: np.ndarray, event=None, keep=()):
-        self._packed = packed
+    def __init__(self, outs: tuple, event=None, keep=()):
+        self._outs = outs
         self._event = event
-        self._keep = keep  # device tensors the stream still uses
+        self._keep = keep  # device tensors (and scratch) the stream still uses
 
-    def result(self) -> np.ndarray:
+    def result(self) -> tuple:
         if self._event is not None:
             self._event.synchronize()
             self._event = None
             self._keep = ()
-        return self._packed
+        return self._outs
 
 
 class ScanPipe:
     """Runs fused device scans for a stream of byte-code jobs with lookahead.
 
     jobs: list of (job_id, codes uint8[n]).  `run()` yields
-    (job_id, present bool[n-k+1]) in input order while later calls scan on
-    the device in the background.
+    (job_id, present bool[n-k+1]) in input order — (job_id, present,
+    tables) in eval mode — while later calls scan on the device in the
+    background.
     """
 
     def __init__(self, scanner, k: int, row_windows: int | None = None,
@@ -99,9 +106,12 @@ class ScanPipe:
         self.depth = max(1, int(depth))
         self.row_bytes = self.row_windows + k - 1
         self.device = scanner.device
+        self.eval_mode = getattr(scanner, "eval_enabled", False)
         self._cuda = self.device.type == "cuda"
         self._stream = torch.cuda.Stream(self.device) if self._cuda else None
-        self._slots: list = [None] * (self.depth + 2)
+        # per slot: pinned codes, then pinned outputs (allocated at first use)
+        self._codes: list = [None] * (self.depth + 2)
+        self._outs: list = [None] * (self.depth + 2)
         # observability for adaptive placement: how often the consumer had
         # to wait on the device vs found the result already materialized
         self.waits = 0
@@ -138,18 +148,19 @@ class ScanPipe:
         return [c for c in calls if c.segs]
 
     # -- dispatch ---------------------------------------------------------
-    def _slot(self, call_idx: int):
-        """(codes, packed) pinned staging tensors of this call's slot."""
-        i = call_idx % len(self._slots)
-        if self._slots[i] is None:
-            nb = -(-self.row_windows // 8)
-            self._slots[i] = (
-                torch.empty((self.rows, self.row_bytes), dtype=torch.uint8,
+    def _out_pins(self, i: int, outs) -> tuple:
+        """Pinned host buffers of slot i for a call's device outputs (the
+        first sized for a full call's rows; the ramp-up uses a prefix)."""
+        if self._outs[i] is None:
+            first = outs[0]
+            self._outs[i] = (
+                torch.empty((self.rows, *first.shape[1:]), dtype=first.dtype,
                             pin_memory=True),
-                torch.empty((self.rows, nb), dtype=torch.uint8,
-                            pin_memory=True),
+                *(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                  for o in outs[1:]),
             )
-        return self._slots[i]
+        pins = self._outs[i]
+        return (pins[0][: outs[0].shape[0]], *pins[1:])
 
     def _fill(self, buf: np.ndarray, jobs, call: _Call) -> None:
         # pad with 'A': padding windows are sliced off by the segment map
@@ -160,29 +171,45 @@ class ScanPipe:
                 s.w0 : s.w0 + s.nw + self.k - 1
             ]
 
+    def _launch(self, codes) -> tuple:
+        if self.eval_mode:
+            # fused scan + site eval (raw transfer; the tables' D2H dwarfs
+            # what a packed transfer would save); the returned tuple also
+            # carries the call's device scratch, which the pending call keeps
+            return self.scanner.scan_eval_packed(codes, self.k)
+        return (self.scanner.scan_packed(codes, self.k),)
+
     def _dispatch(self, jobs, call: _Call, call_idx: int) -> _Pending:
         rows = self._call_rows(call_idx)
         self.calls += 1
         if not self._cuda:
             buf = np.empty((rows, self.row_bytes), np.uint8)
             self._fill(buf, jobs, call)
-            return _Pending(self.scanner.scan_packed(buf, self.k).numpy())
-        codes_pin, out_pin = self._slot(call_idx)
-        self._fill(codes_pin[:rows].numpy(), jobs, call)
+            return _Pending(tuple(o.numpy() for o in self._launch(buf)))
+        i = call_idx % len(self._codes)
+        if self._codes[i] is None:
+            self._codes[i] = torch.empty((self.rows, self.row_bytes),
+                                         dtype=torch.uint8, pin_memory=True)
+        codes_pin = self._codes[i][:rows]
+        self._fill(codes_pin.numpy(), jobs, call)
         stream = self._stream
         # the filter words were uploaded on another stream
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
-            codes_dev = codes_pin[:rows].to(self.device, non_blocking=True)
-            packed = self.scanner.scan_packed(codes_dev, self.k)
-            out_pin[:rows].copy_(packed, non_blocking=True)
+            codes_dev = codes_pin.to(self.device, non_blocking=True)
+            outs = self._launch(codes_dev)
+            pins = self._out_pins(i, outs)
+            for pin, out in zip(pins, outs):
+                pin.copy_(out, non_blocking=True)
             event = torch.cuda.Event()
             event.record(stream)
-        return _Pending(out_pin[:rows].numpy(), event, (codes_dev, packed))
+        return _Pending(tuple(p.numpy() for p in pins), event, (codes_dev, outs))
 
     # -- execution --------------------------------------------------------
     def run(self, jobs):
-        """Returns a generator of (job_id, present) in input order.
+        """Returns a generator of (job_id, present) in input order —
+        (job_id, present, tables) in eval mode, tables None where the job
+        has no interior site.
 
         The first `depth+1` device calls are dispatched EAGERLY (before the
         first next()), so a caller may start host work between run() and
@@ -202,31 +229,46 @@ class ScanPipe:
 
         pump()  # eager: the device is busy before the generator is consumed
 
+        eval_mode = self.eval_mode
+        nw_row = self.row_windows
+
         def gen():
             first_wait = True
             parts: dict[int, list[np.ndarray]] = {}
+            tab_parts: dict[int, list[tuple]] = {}
             done: dict[int, np.ndarray] = {}
+            done_tabs: dict[int, tuple] = {}
             need = {
                 ji: max(0, len(c) - k + 1) for ji, (_j, c) in enumerate(jobs)
             }
             next_ji = 0
 
+            def assemble_tabs(ji: int):
+                ps = tab_parts.pop(ji, [])
+                if not ps:
+                    return None
+                return tuple(np.concatenate(c) for c in zip(*ps))
+
             def emit_ready():
                 nonlocal next_ji
                 while next_ji < len(jobs):
                     if need[next_ji] == 0:
-                        yield (jobs[next_ji][0], np.zeros(0, bool))
+                        out = (jobs[next_ji][0], np.zeros(0, bool))
                     elif next_ji in done:
-                        yield (jobs[next_ji][0], done.pop(next_ji))
+                        out = (jobs[next_ji][0], done.pop(next_ji))
                     else:
                         return
+                    if eval_mode:
+                        yield (*out, done_tabs.pop(next_ji, None))
+                    else:
+                        yield out
                     next_ji += 1
 
             while inflight:
                 call, fut = inflight.popleft()
                 pump()  # keep the device queue full before blocking
                 t0 = time.perf_counter()
-                packed = fut.result()  # blocks for THIS call only
+                outs = fut.result()  # blocks for THIS call only
                 dt = time.perf_counter() - t0
                 self.wait_s += dt
                 if not first_wait:
@@ -234,18 +276,44 @@ class ScanPipe:
                 first_wait = False
                 if dt > 0.002:
                     self.waits += 1
-                # a copy: the slot's pinned buffer is reused DEPTH+2 calls on
-                bits = np.unpackbits(packed, axis=1, bitorder="little")
+                # copies only: the slot's pinned buffers are reused DEPTH+2
+                # calls on
+                bits = np.unpackbits(outs[0], axis=1, bitorder="little")
+                if eval_mode:
+                    (_packed, _n_sites, site, gate, sub_sup, del_sup, ins_lane,
+                     ins_ok, ins_sup) = outs
+                    valid = site[site >= 0]  # ascending prefix
                 for s in call.segs:
                     parts.setdefault(s.job, []).append(
                         bits[s.row, s.off : s.off + s.nw].astype(bool)
                     )
+                    if eval_mode:
+                        # interior sites only (the drop rule: a device-
+                        # evaluated site needs k+max_del suffix bytes inside
+                        # its own segment; 2k covers every table consumer)
+                        g0 = s.row * nw_row + s.off
+                        lo = int(np.searchsorted(valid, g0))
+                        hi = int(np.searchsorted(
+                            valid, g0 + max(0, s.nw - 2 * k), side="right"
+                        ))
+                        if hi > lo:
+                            wins = (valid[lo:hi] - g0 + s.w0).astype(np.int64)
+                            # valid is the ascending PREFIX of site, so the
+                            # table row of valid[j] is j itself
+                            rows_i = np.arange(lo, hi)
+                            tab_parts.setdefault(s.job, []).append((
+                                wins, gate[rows_i], sub_sup[rows_i],
+                                del_sup[rows_i], ins_lane[rows_i],
+                                ins_ok[rows_i], ins_sup[rows_i],
+                            ))
                     got = sum(len(p) for p in parts[s.job])
                     if got == need[s.job]:
                         ps = parts.pop(s.job)
                         done[s.job] = (
                             ps[0] if len(ps) == 1 else np.concatenate(ps)
                         )
+                        if eval_mode:
+                            done_tabs[s.job] = assemble_tabs(s.job)
                 yield from emit_ready()
             yield from emit_ready()
             if next_ji != len(jobs):

@@ -31,7 +31,7 @@ print(" ".join(names))
 _SLICE_MODULES = [
     "ops.scan_conv", "ops.bloom_probe", "polish.ntedit_gpu", "pipeline.bulk",
     "ops.kmers", "ops.dbg_bfs", "fill", "fill.nw", "fill.konnector",
-    "fill.extend", "fill.sealer", "polish.reports",
+    "fill.extend", "fill.sealer", "polish.reports", "ops.scan_eval",
 ]
 
 

@@ -1,7 +1,7 @@
 """The port's bulk slice end to end against the JAX package, on the CPU.
 
 run_bulk and cli.main of goldpolish_tpu_torch (backend numpy, and backend
-hybrid with the plain torch scan on device="cpu" forced on with
+hybrid with the plain torch fused eval on device="cpu" forced on with
 GPTPU_FORCE_DEVICE_SCAN) must write, with the sealer on (the default),
 the bytes of tests/golden/expected_polished.fa that tests/test_golden.py
 pins for the JAX package, and with the sealer off the same bytes as the
@@ -24,7 +24,7 @@ from goldpolish_tpu.polish.ntedit_tpu import NtEditTPU
 from goldpolish_tpu_torch import cli
 from goldpolish_tpu_torch.config import PipelineConfig
 from goldpolish_tpu_torch.io import fasta
-from goldpolish_tpu_torch.ops import bloom, scan_conv
+from goldpolish_tpu_torch.ops import bloom, scan_eval
 from goldpolish_tpu_torch.pipeline import bulk
 from goldpolish_tpu_torch.polish import ntedit_oracle as ne
 from goldpolish_tpu_torch.polish import scanpipe
@@ -73,12 +73,13 @@ def test_run_bulk_matches_jax_package(tmp_path, monkeypatch, backend,
     out.mkdir()
     cfg = _golden(PipelineConfig, str(out), concurrency, backend=backend,
                   device="cpu")
-    calls = scan_conv.scan_present_packed_reference.calls.value
+    calls = scan_eval.scan_eval_reference.calls.value
     totals = bulk.run_bulk(cfg)
     assert totals["contigs"] == 4
     with open(cfg.output_seqs, "rb") as f:
         assert f.read() == want
-    scanned = scan_conv.scan_present_packed_reference.calls.value - calls
+    # the hybrid pipe runs the fused eval, armed by default
+    scanned = scan_eval.scan_eval_reference.calls.value - calls
     assert (scanned > 0) == (backend == "hybrid")
 
 
