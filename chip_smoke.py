@@ -26,16 +26,33 @@ raises and the script exits non-zero without the result line.
             K-12 MG1655) in 4 contigs, mutated every ~700 bp (sub/ins/del)
             with a 60-bp `n` gap every 50 kbp (92 gaps), covered by
             simulated reads with a PAF, polished by the CLI's default chain
-            (ntEdit -> mask -> sealer -> upper) three times: `--backend
+            (ntEdit -> mask -> sealer -> upper) four times: `--backend
             hybrid -k 32 -k 28 -k 24 -k 20 -b 1` with
             GPTPU_FORCE_DEVICE_SCAN=1 and the fused eval armed (the
             default), the same with GPTPU_DEVICE_EVAL=0 (the dense scan
-            alone), then `--backend numpy`.  Requires byte-identical
-            outputs; the eval arm: scan_eval launches > 0, walker table
-            hits > 0; the eval-off arm: scan kernel launches > 0; no
-            plain-version call in either.  Prints each arm's wall time,
-            ntEdit stage sum, table hits / giveups, and the sealer's seconds
-            and gaps found / closed.
+            alone), then `--backend numpy`, then the first arm with
+            `--fill-overlap` (the device fill claims batches from the tail).
+            Requires the first three outputs byte-identical; the eval arm:
+            scan_eval launches > 0, walker table hits > 0; the eval-off
+            arm: scan kernel launches > 0; the overlap arm: 4 contigs, at
+            least one batch polished with device filters, every bloom_sort
+            launch count > 0 (its bytes' equality with the first arm is
+            reported, not required: the device filter is a superset of the
+            host fill's); no plain-version call in any arm.  Prints each
+            arm's wall time, Bloom-fill seconds, ntEdit stage sum, table
+            hits / giveups, and the sealer's seconds and gaps found /
+            closed.
+            Before the arms, the fill phase: for each of the 4 batches
+            (bulk's builder and read choice: ~1,900 reads, ~11.6 Mbases,
+            a 10 MiB counting filter and a 4 MiB filter per k), the device
+            fill (kernel 5) against its plain torch version on the card,
+            single dispatch, required bit-equal; the chunked build (the
+            default 2^21-base chunks) equal to single dispatch; the host
+            fill (native.fill_bfs_stream) contained in it, with the share
+            of extra bits printed.  Times: one k's fill (keys, sort, runs,
+            slot totals, promotion) from CUDA events, kernel and plain, and
+            each whole fill's seconds (upload and copy back included)
+            beside the host fill's.
 5. sealer   the sealer stage alone, on the 4.64 Mbp truth with a 60-bp
             lowercase gap every 18 kbp (256 gaps) and 16 MiB filters of the
             truth's k-mers at k = 32, 28, 24, 20 (h = 4): seal_records with
@@ -48,8 +65,9 @@ raises and the script exits non-zero without the result line.
 
 Then a {"kernels": [...]} line (launches counted on the path each kernel
 serves: the main path's eval arm for scan_eval, its eval-off arm for the
-scan, phase 5 for the BFS; the probe is fused into all three and launches
-nothing on its own), and last the line
+scan, its overlap arm for the fill (the sum of its four wrappers), phase 5
+for the BFS; the probe is fused into all three and launches nothing on its
+own), and last the line
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
@@ -79,6 +97,7 @@ GAP_LEN = 60
 # the sealer phase's filters: bulk's 4 MiB per ~1.16 Mbp batch, scaled to
 # the whole genome, so the false-positive branching matches bulk's
 SEALER_FILTER_BYTES = 16 << 20
+SINGLE_DISPATCH = 1 << 40  # a chunk bound above any batch: one dispatch
 
 
 def emit(**obj) -> None:
@@ -314,6 +333,78 @@ def read_fasta(path: str) -> list[tuple[str, str]]:
     return out
 
 
+def filters_err(got, want) -> int:
+    """Max absolute difference of two filter lists' bytes."""
+    return max(int(np.abs(g.array.astype(np.int16) - w.array.astype(np.int16)).max())
+               for g, w in zip(got, want))
+
+
+def phase_fill(argv, ids, work):
+    """Kernel 5 against its plain version on bulk's batches (see the module
+    docstring); returns one row per batch."""
+    import torch
+
+    from goldpolish_tpu_torch import cli
+    from goldpolish_tpu_torch.ops import bloom_sort as bs
+    from goldpolish_tpu_torch.pipeline import bulk
+
+    cfg = cli.args_to_config(cli.build_parser().parse_args(argv))
+    builder = bulk.make_builder(cfg, work)
+    h, cbf = builder.hash_num, builder.cbf_bytes
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t
+
+    rows = []
+    for name in ids:
+        reads, thrs = builder.read_stream([name])
+        bf_bytes = builder._batch_bf_bytes([name])
+        args = (reads, thrs, K_VALUES, h, cbf, bf_bytes)
+        got, fill_s = timed(lambda: bs.device_fill_bfs_sorted(
+            *args, chunk_bases=SINGLE_DISPATCH))
+        want, plain_s = timed(lambda: bs.device_fill_bfs_sorted_reference(
+            *args, chunk_bases=SINGLE_DISPATCH, device="cuda"))
+        chunked, chunked_s = timed(lambda: bs.device_fill_bfs_sorted(*args))
+        host, host_s = timed(lambda: builder.build_batch([name]).bfs)
+        st = bs.upload_stream(reads, thrs, torch.device("cuda"))
+        ms, plain_ms = [], []
+        for ki, k in enumerate(K_VALUES):
+            fill = (st, k, ki - 2, h, cbf, bf_bytes * 8)
+            ms.append(time_ms(lambda: bs.fill_k(bs.KERNEL_OPS, *fill), 5))
+            plain_ms.append(time_ms(lambda: bs.fill_k(bs.PLAIN_OPS, *fill), 1, warm=1))
+        extra = [
+            int(np.unpackbits(d.array & ~hb.array).sum())
+            / max(1, int(np.unpackbits(hb.array).sum()))
+            for d, hb in zip(got, host)
+        ]
+        row = {
+            "batch": name, "reads": len(reads), "bases": sum(map(len, reads)),
+            "thresholds": sorted(set(thrs)), "cbf_bytes": cbf, "bf_bytes": bf_bytes,
+            "chunks": len(bs._groups(reads, thrs, bs.DEFAULT_CHUNK_BASES)),
+            "k": K_VALUES, "equal": filters_err(got, want) == 0,
+            "max_abs_err": filters_err(got, want),
+            "chunked_equal": filters_err(chunked, got) == 0,
+            "host_contained": all(not np.any(hb.array & ~d.array)
+                                  for d, hb in zip(got, host)),
+            "extra_bit_share": extra,
+            "ms": ms, "plain_ms": plain_ms, "fill_s": fill_s, "plain_fill_s": plain_s,
+            "chunked_fill_s": chunked_s, "host_fill_s": host_s,
+        }
+        rows.append(row)
+        emit(phase="kernel_bloom_sort", **row)
+        if not row["equal"]:
+            raise AssertionError(f"bloom_sort kernel disagrees with plain on {name}")
+        if not row["chunked_equal"]:
+            raise AssertionError(f"the chunked device fill differs on {name}")
+        if not row["host_contained"]:
+            raise AssertionError(f"the device fill misses host-fill bits on {name}")
+    return rows
+
+
 class SealerTally:
     """Sums each batch's sealer stats and ntEdit stage seconds while the CLI
     runs: wraps bulk.polish_batch_records, which run_bulk looks up per
@@ -376,8 +467,10 @@ def phase_main(rng):
     from goldpolish_tpu_torch import cli
     from goldpolish_tpu_torch.io import seqindex
     from goldpolish_tpu_torch.ops import bloom_probe as bp
+    from goldpolish_tpu_torch.ops import bloom_sort as bs
     from goldpolish_tpu_torch.ops import scan_conv as sc
     from goldpolish_tpu_torch.ops import scan_eval as se
+    from goldpolish_tpu_torch.pipeline import bulk
 
     work = os.path.join(ROOT, "goldpolish_tpu_torch", "build", f"smoke_{os.getpid()}")
     os.makedirs(work)
@@ -391,15 +484,24 @@ def phase_main(rng):
         emit(phase="inputs", genome_bp=GENOME_BP, contigs=N_CONTIGS,
              draft_bp=draft_bp, reads=n_reads, seconds=time.monotonic() - t0)
 
-        def polish(name: str, backend: str, env: dict):
-            out = os.path.join(work, f"polished_{name}.fa")
-            argv = [draft, reads, out, "--mappings", paf, "-b", "1",
+        def cli_argv(name: str, backend: str, *extra: str) -> list[str]:
+            argv = [draft, reads, os.path.join(work, f"polished_{name}.fa"),
+                    "--mappings", paf, "-b", "1",
                     "-m", os.path.join(work, f"ws_{name}"),
-                    "--backend", backend]
+                    "--backend", backend, *extra]
             for k in K_VALUES:
                 argv += ["-k", str(k)]
+            return argv
+
+        fills = phase_fill(cli_argv("fill", "hybrid"), [n for n, _t in truths], work)
+
+        def polish(name: str, backend: str, env: dict, *extra: str):
+            argv = cli_argv(name, backend, *extra)
+            out = argv[2]
             saved = {key: os.environ.pop(key, None) for key in env}
             os.environ.update({key: v for key, v in env.items() if v is not None})
+            run_bulk, run = bulk.run_bulk, {}
+            bulk.run_bulk = lambda cfg: run.update(run_bulk(cfg)) or run
             for c in counters.values():
                 c.reset()
             try:
@@ -408,6 +510,7 @@ def phase_main(rng):
                     rc = cli.main(argv)
                 wall = time.monotonic() - t
             finally:
+                bulk.run_bulk = run_bulk
                 for key, v in saved.items():
                     os.environ.pop(key, None)
                     if v is not None:
@@ -424,29 +527,37 @@ def phase_main(rng):
                  polished_bases_per_s=draft_bp / wall,
                  contigs=len(recs), contigs_equal_truth=exact,
                  share_equal_truth=exact / N_CONTIGS, ntedit_s=tally.ntedit_s,
+                 bf_fill_bg_s=run["timing"].get("bf_fill_bg_s"),
+                 device_filled_batches=run["device_filled_batches"],
                  sealer_s=tally.sealer_s, gaps_found=tally.gaps_found,
                  gaps_closed=tally.gaps_closed, table_hits=walk.hits,
                  table_giveups=walk.giveups, **counts,
                  plain_calls=sum(v for key, v in counts.items() if key.startswith("plain")))
-            return data, recs, tally, walk, counts
+            return data, recs, tally, walk, counts, run
 
         counters = {
             "scan_eval_launches": se.scan_eval.launches,
             "scan_kernel_launches": sc.scan_present_packed.launches,
             "probe_kernel_launches": bp.probe_lo32.launches,
+            **{f"fill_{op.__name__}_launches": op.launches for op in bs.KERNEL_OPS},
             "plain_scan_eval": se.scan_eval_reference.calls,
             "plain_scan": sc.scan_present_packed_reference.calls,
             "plain_probe": bp.probe_lo32_reference.calls,
+            **{f"plain_fill_{op.__name__}": op.calls for op in bs.PLAIN_OPS},
         }
         force = {"GPTPU_FORCE_DEVICE_SCAN": "1"}
-        hy, hy_recs, hy_seal, hy_walk, on = polish(
+        hy, hy_recs, hy_seal, hy_walk, on, _run = polish(
             "hybrid", "hybrid", {**force, "GPTPU_DEVICE_EVAL": None})
-        off_bytes, _r, _t, _w, off = polish(
+        off_bytes, _r, _t, _w, off, _run = polish(
             "hybrid_eval_off", "hybrid", {**force, "GPTPU_DEVICE_EVAL": "0"})
-        np_bytes, _r, _t, _w, _c = polish("numpy", "numpy", {})
+        np_bytes, _r, _t, _w, _c, _run = polish("numpy", "numpy", {})
+        ov_bytes, ov_recs, _t, _w, ov, ov_run = polish(
+            "hybrid_fill_overlap", "hybrid", {**force, "GPTPU_DEVICE_EVAL": None},
+            "--fill-overlap")
         identical = hy == np_bytes and off_bytes == np_bytes
         emit(phase="main_check", hybrid_equals_numpy=hy == np_bytes,
-             eval_off_equals_numpy=off_bytes == np_bytes, output_bytes=len(hy))
+             eval_off_equals_numpy=off_bytes == np_bytes, output_bytes=len(hy),
+             fill_overlap_equals_hybrid=ov_bytes == hy)
         if not identical:
             raise AssertionError("a hybrid arm's output differs from the numpy backend")
         if len(hy_recs) != N_CONTIGS:
@@ -459,12 +570,20 @@ def phase_main(rng):
             raise AssertionError("the walker replayed no site from the eval's tables")
         if off["scan_kernel_launches"] <= 0 or off["scan_eval_launches"]:
             raise AssertionError("the eval-off arm did not run the scan kernel alone")
-        if any(c[key] for c in (on, off) for key in c if key.startswith("plain")):
+        if len(ov_recs) != N_CONTIGS:
+            raise AssertionError(f"the overlap arm wrote {len(ov_recs)} contigs")
+        if ov_run["device_filled_batches"] <= 0:
+            raise AssertionError("no batch of the overlap arm used device filters")
+        fill_launches = [ov[f"fill_{op.__name__}_launches"] for op in bs.KERNEL_OPS]
+        if min(fill_launches) <= 0:
+            raise AssertionError(f"the overlap arm missed a fill kernel: {fill_launches}")
+        if any(c[key] for c in (on, off, ov) for key in c if key.startswith("plain")):
             raise AssertionError("a plain version ran during a CUDA run")
         launches = {"scan_eval": on["scan_eval_launches"],
                     "scan_present_packed": off["scan_kernel_launches"],
-                    "probe_lo32": on["probe_kernel_launches"]}
-        return launches, truths
+                    "probe_lo32": on["probe_kernel_launches"],
+                    "bloom_sort_fill": sum(fill_launches)}
+        return launches, truths, fills
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -667,7 +786,7 @@ def main() -> int:
     probe, scans = phase_kernels(rng)
     # its own generator, so the other phases keep their inputs
     evals = phase_scan_eval(np.random.default_rng(SEED + 1))
-    launches, truths = phase_main(rng)
+    launches, truths, fills = phase_main(rng)
     bfs_launches, bfs_rows = phase_sealer(truths)
     first = scans[0]
     print(json.dumps({"kernels": [
@@ -703,6 +822,14 @@ def main() -> int:
             "launches": bfs_launches,
             "max_abs_err": max(r["max_abs_err"] for r in bfs_rows),
             "ms": bfs_rows[0]["ms"], "plain_ms": bfs_rows[0]["plain_ms"],
+        },
+        {
+            "name": "bloom_sort_fill", "route": "cuda",
+            "source": "goldpolish_tpu_torch/csrc/bloom_sort.cu",
+            "replaces": "goldpolish_tpu/ops/bloom_sort.py:245",
+            "launches": launches["bloom_sort_fill"],
+            "max_abs_err": max(r["max_abs_err"] for r in fills),
+            "ms": fills[0]["ms"][0], "plain_ms": fills[0]["plain_ms"][0],
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

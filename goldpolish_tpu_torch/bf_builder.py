@@ -19,13 +19,16 @@ back to the NumPy oracle.  Instead of the reference's /dev/shm BF files +
 FIFO handshakes, the result is returned in memory (and convertible to device
 words for the device scan).
 
-Port counterpart: goldpolish_tpu/bf_builder.py, copied with the host fill
-only: build_batch_device and device_fill_bfs (the device fill, K3) are not
-ported yet (ROADMAP.md queue 1).
+Port counterpart: goldpolish_tpu/bf_builder.py.  build_batch_device runs
+the sort-based device fill (ops/bloom_sort, kernel 5).  Left out: the
+round-3 scatter build `device_fill_bfs` (GPTPU_SCATTER_FILL raises; ROADMAP
+lists it under "Not to port"), and the JAX method's fallback to the host
+fill when the device fill fails: here a device failure raises.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -121,12 +124,7 @@ class BFBuilder:
             # whole batch in one native call: per-k OpenMP threads live
             # across all reads (vs one omp region per read) and the Python
             # per-read dispatch disappears — bit-identical filters
-            reads: list[bytes] = []
-            thresholds: list[int] = []
-            for _tid, chosen, kmer_threshold in self._choose_reads(target_ids):
-                for rid in chosen:
-                    reads.append(self.mapped_index.get_seq(rid))
-                    thresholds.append(kmer_threshold)
+            reads, thresholds = self.read_stream(target_ids)
             if reads:
                 self._fill_stream(
                     reads, thresholds, self.hash_num, self.k_values, cbfs, bfs
@@ -148,6 +146,17 @@ class BFBuilder:
             while bf_bytes < total * 2:  # 2 bytes = 16 bits per expected k-mer
                 bf_bytes *= 2
         return bf_bytes
+
+    def read_stream(self, target_ids: list[str]) -> tuple[list[bytes], list[int]]:
+        """The batch's chosen reads, in order, and each one's threshold (its
+        target's): the input of the host stream fill and the device fill."""
+        reads: list[bytes] = []
+        thrs: list[int] = []
+        for _tid, chosen, kmer_threshold in self._choose_reads(target_ids):
+            for rid in chosen:
+                reads.append(self.mapped_index.get_seq(rid))
+                thrs.append(kmer_threshold)
+        return reads, thrs
 
     def _choose_reads(self, target_ids: list[str]):
         """Per-target (target_id, chosen_read_ids, kmer_threshold) with the
@@ -174,3 +183,34 @@ class BFBuilder:
                 raise ValueError("k-mer threshold must be > 0")
             out.append((target_id, chosen, kmer_threshold))
         return out
+
+    def build_batch_device(self, target_ids: list[str],
+                           device: str = "cuda") -> BatchBFs:
+        """Fast-mode device fill (sort-based, ops/bloom_sort) on `device`.
+
+        DEVIATION from the host fill (documented, like autoscale_bf): per-slot
+        occurrence totals upper-bound conservative-update counts and
+        promotion ignores occurrence order, so the filter is a slight
+        SUPERSET of the host fill's (every host-promoted k-mer is
+        device-promoted; a few extra k-mers near the threshold may join).
+        Each read promotes with its target's adaptive threshold, and the
+        read sets and filter size come from _choose_reads and
+        _batch_bf_bytes, shared with build_batch.  Returns no CBFs."""
+        from .ops import bloom_sort
+
+        if os.environ.get("GPTPU_SCATTER_FILL"):
+            raise NotImplementedError(
+                "GPTPU_SCATTER_FILL selects the round-3 scatter fill, which "
+                "this port does not carry (ROADMAP.md, Not to port); unset it"
+            )
+        if any(k > bloom_sort.KHALO + 1 for k in self.k_values):
+            raise ValueError(
+                f"device BF build supports k <= {bloom_sort.KHALO + 1};"
+                f" got {self.k_values} — use the host fill for larger k"
+            )
+        reads, thrs = self.read_stream(target_ids)
+        bfs = bloom_sort.device_fill_bfs_sorted(
+            reads, thrs, self.k_values, self.hash_num, self.cbf_bytes,
+            self._batch_bf_bytes(target_ids), device=device,
+        )
+        return BatchBFs(self.k_values, [], bfs)

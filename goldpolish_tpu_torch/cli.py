@@ -3,7 +3,8 @@ reference driver.
 
 Port counterpart: goldpolish_tpu/cli.py, copied with these cuts:
 --backend takes numpy or hybrid (the jax backend is not ported), --device
-picks where the hybrid scan runs, and --target (targeted mode) raises until
+picks where the hybrid scan and the --fill-overlap device fill run, and
+--target (targeted mode) raises until
 pipeline/targeted.py is ported (ROADMAP.md queue 1).
 
 Usage mirrors `goldpolish <draft.fa> <reads.fa|fq> <out.fa>` with the
@@ -62,8 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Editor compute backend (hybrid = CUDA dense scan + "
                         "host walk)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="Where the hybrid scan runs (cpu = the plain torch "
-                        "scan, for tests)")
+                   help="Where the hybrid scan and the --fill-overlap "
+                        "fill run (cpu = the plain torch versions, for "
+                        "tests)")
     p.add_argument("--checkpoint", default="",
                    help="Checkpoint manifest path for preemption-safe resume")
     p.add_argument("--no-sealer", action="store_true",
@@ -74,8 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Fork-pool batch workers (host backend; scales "
                         "past the GIL like the reference's worker processes)")
     p.add_argument("--fill-overlap", action="store_true",
-                   help="Fast mode: the device claims Bloom-fill batches "
-                        "from the tail (not ported yet: raises)")
+                   help="Fast mode (hybrid backend): the device claims "
+                        "Bloom-fill batches from the tail and fills them "
+                        "with the sort-based fill on --device (a superset "
+                        "of the host fill); a late device fill races a "
+                        "host fill")
     # hidden reference flags (reference scripts/goldpolish:158-183)
     def _str2bool(v):
         if isinstance(v, bool):

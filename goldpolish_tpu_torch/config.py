@@ -8,7 +8,8 @@ flags and magic constants.  This dataclass is the single source of truth;
 the CLI populates it.
 
 Port counterpart: goldpolish_tpu/config.py, copied; adds `device`, where
-the hybrid backend's scan runs ("cuda", or "cpu" for the tests).
+the hybrid backend's scan and the overlapped device fill run ("cuda", or
+"cpu" for the tests).
 """
 
 from __future__ import annotations
@@ -59,17 +60,23 @@ class PipelineConfig:
 
     # new-framework knobs (no reference equivalent)
     backend: str = "numpy"  # "hybrid" = CUDA dense scan + host walk
-    # device of the hybrid scan: "cuda" raises without CUDA (never a CPU
-    # fallback); "cpu" runs the plain torch scan (tests)
+    # device of the hybrid scan and the fill_overlap fill: "cuda" raises
+    # without CUDA (never a CPU fallback); "cpu" runs the plain torch
+    # versions (tests)
     device: str = "cuda"
-    # the device Bloom fill (K3) and its overlapped mode: not ported yet,
-    # run_bulk refuses either when set (kept so configs carry over)
+    # the device fill in place of every host fill: in the JAX package it
+    # acts only with the jax backend, which is not ported (K7), so run_bulk
+    # refuses it (kept so configs carry over)
     device_bf_build: bool = False
     # lookahead Bloom fill: batch N+1's filters build on a background
     # thread while batch N polishes (the reference BF-server's concurrency,
     # goldpolish_targeted_bfs.cpp:177-238); thread-pool path only — fork
     # pool workers fill in-process by construction
     lookahead_fill: bool = True
+    # fast mode, hybrid backend with the lookahead fill: a thread claims
+    # batches from the tail and fills them on `device` (ops/bloom_sort,
+    # kernel 5: a documented superset of the host fill); a device fill still
+    # running when its batch is due races a host fill (the hedge)
     fill_overlap: bool = False
     checkpoint: str = ""  # manifest path for preemption-safe resume
     max_concurrent_batches: int = 4

@@ -48,6 +48,7 @@
 
 #include <cstdint>
 
+#include "block_scan.cuh"
 #include "bloom_probe.cuh"
 
 namespace {
@@ -147,34 +148,6 @@ __device__ __forceinline__ int64_t clamp64(int64_t x, int64_t lo, int64_t hi) {
 
 __device__ __forceinline__ int upper(int c) {
   return (c >= 97 && c <= 122) ? c - 32 : c;
-}
-
-// Exclusive prefix sum of v over the block (blockDim.x a multiple of 32);
-// *total gets the block's sum.  Every thread of the block must call it.
-__device__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int s_warp[32];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  int x = v;
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) s_warp[wid] = x;
-  __syncthreads();
-  if (wid == 0) {
-    int t = lane < nwarps ? s_warp[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, t, o);
-      if (lane >= o) t += y;
-    }
-    s_warp[lane] = t;
-  }
-  __syncthreads();
-  const int excl = (wid ? s_warp[wid - 1] : 0) + x - v;
-  *total = s_warp[nwarps - 1];
-  __syncthreads();  // s_warp is reused by the next call
-  return excl;
 }
 
 // flags bit 0: present; bit 1: clean (all k bytes of the window accepted)
@@ -279,7 +252,7 @@ __global__ void se_block_scan(int64_t nblk, const int32_t* __restrict__ blk_cnt,
   for (int64_t base = 0; base < nblk; base += blockDim.x) {
     const int64_t i = base + threadIdx.x;
     int total;
-    const int e = block_exclusive_scan(i < nblk ? blk_cnt[i] : 0, &total);
+    const int e = gp_block_exclusive_scan(i < nblk ? blk_cnt[i] : 0, &total);
     if (i < nblk) blk_off[i] = carry + e;
     carry += total;
   }
@@ -402,7 +375,7 @@ __global__ void se_need_compact(int S, int SI, const uint8_t* __restrict__ need_
     const int i = base + threadIdx.x;
     const int v = i < S && need_flag[i];
     int total;
-    const int pos = carry + block_exclusive_scan(v, &total);
+    const int pos = carry + gp_block_exclusive_scan(v, &total);
     if (v && pos < SI) need_sel[pos] = i;
     carry += total;
   }

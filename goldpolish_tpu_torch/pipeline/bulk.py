@@ -16,9 +16,13 @@ Batches run concurrently under an asyncio pool with a strictly ordered
 writer and a checkpoint manifest (pipeline.engine).
 
 Port counterpart: goldpolish_tpu/pipeline/bulk.py, copied with these cuts,
-each raising at startup until ported (ROADMAP.md queue 1): the device fill
-(device_bf_build, fill_overlap), the internal minimizer mapper, and
-multi-host runs.  The per-batch chain is the reference's whole chain; as in
+each raising at startup until ported (ROADMAP.md queue 1): device_bf_build
+(it acts only with the jax backend, K7), the internal minimizer mapper, and
+multi-host runs.  The overlapped fill (--fill-overlap on the hybrid
+backend) runs kernel 5 on the config's device, with two repairs of the JAX
+code: a failed host hedge waits for the device fill, a failed device fill
+raises (never masked by a host fill), and the startup k bound comes from
+bloom_sort.KHALO.  The per-batch chain is the reference's whole chain; as in
 the JAX package, the sealer runs its host search for the numpy and hybrid
 backends alike (the whole-search device BFS is seal_records' hybrid arm,
 which bulk does not select).
@@ -161,7 +165,8 @@ def _pool_worker(records):
 
 
 def build_batch_bfs(builder: BFBuilder, cfg: PipelineConfig, ids: list[str]):
-    """Per-batch filter build (the host fill; the device fill is K3)."""
+    """Per-batch filter build: the host fill (device_bf_build, which acts
+    only with the jax backend, is refused by check_ported)."""
     return builder.build_batch(ids)
 
 
@@ -228,12 +233,25 @@ def polish_batch_records(records, builder: BFBuilder, cfg: PipelineConfig,
     return BatchResult(records=final, stats=stats)
 
 
+def make_builder(cfg: PipelineConfig, workdir: str) -> BFBuilder:
+    """The run's filter builder: indexes, mappings, subsample cap."""
+    target_index, reads_index = build_indexes(cfg, workdir)
+    all_mappings = resolve_mappings(cfg, target_index, workdir)
+    return BFBuilder(
+        target_index, reads_index, all_mappings, cfg.k_values,
+        hash_num=cfg.hash_num, cbf_bytes=cfg.cbf_bytes,
+        bf_bytes=cfg.bf_bytes,
+        subsample_max_mapped_seqs_per_target_10kbp=cfg.resolved_subsample(),
+    )
+
+
 def check_ported(cfg: PipelineConfig) -> None:
     """Refuse, at startup, a configuration this port cannot run yet."""
-    if cfg.device_bf_build or cfg.fill_overlap:
+    if cfg.device_bf_build:
         raise NotImplementedError(
-            "the device Bloom fill (device_bf_build / --fill-overlap, K3) is "
-            "not ported yet (ROADMAP.md queue 1)"
+            "device_bf_build acts only with the jax backend, which is not "
+            "ported (K7, ROADMAP.md queue 1); use --fill-overlap with "
+            "--backend hybrid for the device fill"
         )
     if cfg.backend not in ("numpy", "hybrid"):
         raise NotImplementedError(f"backend {cfg.backend!r} is not ported")
@@ -248,6 +266,15 @@ def run_bulk(cfg: PipelineConfig) -> dict:
     import time as _time
 
     check_ported(cfg)
+    # static config error, not a per-batch condition: fail at startup
+    # (the device fill takes k <= KHALO + 1, as the JAX build's row halo)
+    from ..ops import bloom_sort
+
+    if cfg.fill_overlap and any(k > bloom_sort.KHALO + 1 for k in cfg.k_values):
+        raise ValueError(
+            f"device BF build supports k <= {bloom_sort.KHALO + 1}; got "
+            f"{cfg.k_values} — disable fill_overlap or drop the larger k"
+        )
     t_start = _time.monotonic()
     ws = engine.Workspace(
         prefix=f"goldpolish-tpu-{os.getpid()}",
@@ -255,14 +282,7 @@ def run_bulk(cfg: PipelineConfig) -> dict:
         signal_safe=True,
     )
     try:
-        target_index, reads_index = build_indexes(cfg, ws.dir)
-        all_mappings = resolve_mappings(cfg, target_index, ws.dir)
-        builder = BFBuilder(
-            target_index, reads_index, all_mappings, cfg.k_values,
-            hash_num=cfg.hash_num, cbf_bytes=cfg.cbf_bytes,
-            bf_bytes=cfg.bf_bytes,
-            subsample_max_mapped_seqs_per_target_10kbp=cfg.resolved_subsample(),
-        )
+        builder = make_builder(cfg, ws.dir)
         records = ((r.name, r.seq) for r in fasta.read_seqs(cfg.seqs_to_polish))
         all_batches = list(engine.make_batches(records, cfg.batch_size))
         manifest = engine.CheckpointManifest(cfg.checkpoint or None)
@@ -276,7 +296,7 @@ def run_bulk(cfg: PipelineConfig) -> dict:
         if ckpt_dir:
             os.makedirs(ckpt_dir, exist_ok=True)
         totals = {"batches": len(all_batches), "contigs": 0, "bases_out": 0,
-                  "resumed_batches": 0}
+                  "resumed_batches": 0, "device_filled_batches": 0}
         t_setup = _time.monotonic() - t_start  # index + mapping + builder
         timing_sum: dict = {}
 
@@ -294,6 +314,7 @@ def run_bulk(cfg: PipelineConfig) -> dict:
 
         executor = None
         fill_exec = None
+        dev_futs: list = []  # the device claimer's futures (fill_overlap)
         if cfg.process_pool and cfg.backend != "numpy":
             log.warning(
                 "--process-pool requires the numpy backend (forked workers "
@@ -333,6 +354,7 @@ def run_bulk(cfg: PipelineConfig) -> dict:
             fill_futs: dict = {}
             fill_started: set = set()
             fill_lock = _threading.Lock()
+            fill_done_cv = _threading.Condition(fill_lock)
             pos_of = {b.index: p for p, b in enumerate(my_batches)}
 
             def _timed_fill(ids):
@@ -360,6 +382,91 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                         fill_futs[b.index] = fut
                 return fut
 
+            if cfg.fill_overlap and cfg.backend == "hybrid":
+                # fast-mode overlapped fill (opt-in; see PipelineConfig):
+                # the device claims fill batches from the TAIL while the
+                # host lookahead works the front — whoever claims first
+                # fills; device-claimed batches get the documented
+                # slight-superset sort-based filters (ops/bloom_sort).
+                # Claims are bounded: at most DEV_FILL_AHEAD unconsumed
+                # futures may be outstanding (the totals and keys are tens
+                # of MB per batch on the device), and ANY failure lands in
+                # the future (set_exception), so the consuming worker
+                # surfaces it instead of deadlocking.  No host fallback.
+                DEV_FILL_AHEAD = 3
+
+                def _dev_fill_loop():
+                    while True:
+                        with fill_done_cv:
+                            while len(fill_futs) >= DEV_FILL_AHEAD + 1:
+                                fill_done_cv.wait(timeout=30)
+                            todo = [
+                                p for p in range(len(my_batches))
+                                if my_batches[p].index not in fill_started
+                                and not (manifest
+                                         and my_batches[p].index
+                                         in manifest.done)
+                            ]
+                            # leave the frontmost unfilled batch to the
+                            # host so polish never stalls on the device
+                            if len(todo) <= 1:
+                                return
+                            b = my_batches[todo[-1]]
+                            fut = _cf.Future()
+                            dev_futs.append(fut)
+                            fill_started.add(b.index)
+                            fill_futs[b.index] = fut
+                        t0 = _time2.monotonic()
+                        try:
+                            # everything between claim and fill sits inside
+                            # this try: a claimed-but-unresolved future
+                            # blocks its consumer forever
+                            ids = [h.split()[0] for h, _ in b.records]
+                            bfs = builder.build_batch_device(ids, device=cfg.device)
+                        except Exception as e:  # noqa: BLE001 — to the consumer
+                            fut.set_exception(e)
+                            return
+                        fut.set_result((bfs, _time2.monotonic() - t0))
+
+                dev_fill_thread = _threading.Thread(
+                    target=_dev_fill_loop, name="bf-fill-dev", daemon=True
+                )
+                dev_fill_thread.start()
+                # a hedged (lost) device fill may still be inside a CUDA
+                # call at interpreter teardown; drain it at exit, NOT in
+                # run_bulk (which would stall the return behind the device)
+                import atexit as _atexit
+
+                _atexit.register(dev_fill_thread.join, 300)
+
+            def _hedged_result(fut, records):
+                """Consume a fill future -> (filters, seconds, from_device).
+                A DEVICE-claimed fill still in flight when its consumer
+                arrives gets a host-fill HEDGE, and the first to finish wins
+                (both are valid filter sets; the device's is the documented
+                superset).  Unlike the JAX package, a failure never wins: a
+                failed device fill raises here, and a failed host hedge
+                waits for the device fill."""
+                dev = fut in dev_futs
+                if not dev or fut.done():
+                    return (*fut.result(), dev)
+                ids = [h.split()[0] for h, _ in records]
+                host_fut: _cf.Future = _cf.Future()
+
+                def run():
+                    try:
+                        host_fut.set_result(_timed_fill(ids))
+                    except Exception as e:  # noqa: BLE001 — to the consumer
+                        host_fut.set_exception(e)
+
+                _threading.Thread(target=run, daemon=True).start()
+                first, _rest = _cf.wait(
+                    {fut, host_fut}, return_when=_cf.FIRST_COMPLETED
+                )
+                if fut in first or host_fut.exception() is not None:
+                    return (*fut.result(), True)
+                return (*host_fut.result(), False)
+
             def _next_live(pos: int) -> int:
                 """First position > pos not recorded done — the lookahead
                 must hop OVER resumed batches, not stop at them (a None
@@ -374,11 +481,13 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                 pos = pos_of[batch.index]
                 fut = _ensure_fill(pos, required=True)
                 _ensure_fill(_next_live(pos))  # the lookahead
-                batch_bfs, fill_s = await loop.run_in_executor(
-                    None, fut.result
+                batch_bfs, fill_s, from_device = await loop.run_in_executor(
+                    None, _hedged_result, fut, batch.records
                 )
-                with fill_lock:
+                totals["device_filled_batches"] += from_device
+                with fill_done_cv:
                     fill_futs.pop(batch.index, None)
+                    fill_done_cv.notify_all()
                 res = await loop.run_in_executor(
                     None, polish_batch_records, batch.records, builder, cfg,
                     batch_bfs,
@@ -447,6 +556,12 @@ def run_bulk(cfg: PipelineConfig) -> dict:
             executor.shutdown()
         if fill_exec is not None:
             fill_exec.shutdown()
+        # a device fill that failed after its batch took the host hedge
+        # still fails the run: no path turns a device failure into a host
+        # fill (one still running is not waited for)
+        for fut in dev_futs:
+            if fut.done() and fut.exception() is not None:
+                raise fut.exception()
         if ckpt_dir:
             # run complete: the final output holds everything — drop the
             # per-batch replay files and the manifest so a rerun starts fresh

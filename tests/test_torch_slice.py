@@ -11,6 +11,7 @@ arm the fused eval; tests/test_backend_invariance.py already pins its
 backends equal."""
 
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -22,9 +23,10 @@ from goldpolish_tpu.pipeline import bulk as jax_bulk
 from goldpolish_tpu.polish import ntedit_oracle as jne
 from goldpolish_tpu.polish.ntedit_tpu import NtEditTPU
 from goldpolish_tpu_torch import cli
+from goldpolish_tpu_torch.bf_builder import BFBuilder
 from goldpolish_tpu_torch.config import PipelineConfig
 from goldpolish_tpu_torch.io import fasta
-from goldpolish_tpu_torch.ops import bloom, scan_eval
+from goldpolish_tpu_torch.ops import bloom, bloom_sort, scan_eval
 from goldpolish_tpu_torch.pipeline import bulk
 from goldpolish_tpu_torch.polish import ntedit_oracle as ne
 from goldpolish_tpu_torch.polish import scanpipe
@@ -196,15 +198,195 @@ def test_pipelined_polish_many_shape_fuzz(monkeypatch):
 
 def test_unported_paths_refuse(tmp_path, monkeypatch):
     cfg = _golden(PipelineConfig, str(tmp_path), 1)
-    cfg.fill_overlap = True
-    with pytest.raises(NotImplementedError, match="device Bloom fill"):
+    cfg.device_bf_build = True
+    with pytest.raises(NotImplementedError, match="device_bf_build"):
         bulk.run_bulk(cfg)
+    cfg.device_bf_build = False
     bf = bloom.BloomFilter(1 << 12, 4, 32)
     with pytest.raises(NotImplementedError, match="K7"):
         NtEditGPU(ne.Config(k=32, h=4), bf, backend="jax")
     with pytest.raises(NotImplementedError, match="targeted"):
         cli.main(["d.fa", "r.fq", "o.fa", "--target", "--no-sealer"])
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
-    cfg.fill_overlap = False
     with pytest.raises(NotImplementedError, match="multi-host"):
         bulk.run_bulk(cfg)
+
+
+# -- the overlapped device fill (--fill-overlap, kernel 5's plain version) ----
+
+
+def _synthetic(tmp_path, n_contigs=4, contig_len=3000, coverage=12, seed=0):
+    """tests/test_pipeline.py's synthetic drafts (sub/del/ins every 331 bp)
+    and tiled high-phred reads with a PAF; returns the files and truths."""
+    rng = np.random.default_rng(seed)
+    truths, drafts = [], []
+    for _c in range(n_contigs):
+        t = "".join(rng.choice(list("ACGT")) for _ in range(contig_len))
+        d = list(t)
+        for p in range(100, contig_len - 100, 331):
+            d[p] = ("ACGT"[("ACGT".index(d[p]) + 1) % 4], "", d[p] + "T")[p % 3]
+        truths.append(t)
+        drafts.append("".join(d))
+    draft, reads, paf = (str(tmp_path / n) for n in ("draft.fa", "reads.fq", "map.paf"))
+    with open(draft, "w") as f:
+        f.write("".join(f">ctg{c}\n{d}\n" for c, d in enumerate(drafts)))
+    with open(reads, "w") as rf, open(paf, "w") as pf:
+        rn = 0
+        for c, t in enumerate(truths):
+            for _rep in range(coverage):
+                for s in range(0, contig_len, 750):
+                    e = min(contig_len, s + 1500)
+                    if e - s < 200:
+                        continue
+                    rf.write(f"@r{rn}\n{t[s:e]}\n+\n{'I' * (e - s)}\n")
+                    pf.write(f"r{rn}\t{e-s}\t0\t{e-s}\t+\tctg{c}\t{contig_len}\t"
+                             f"{s}\t{e}\t{e-s}\t{e-s}\t60\n")
+                    rn += 1
+    return draft, reads, paf, truths
+
+
+def _overlap_cfg(tmp_path, k_values=(32, 28), concurrency=1):
+    draft, reads, paf, truths = _synthetic(tmp_path)
+    cfg = PipelineConfig(
+        seqs_to_polish=draft, polishing_seqs=reads,
+        output_seqs=str(tmp_path / "polished_ov.fa"), k_values=list(k_values),
+        batch_size=1, mappings_path=paf, workspace=str(tmp_path / "ws"),
+        max_concurrent_batches=concurrency, backend="hybrid", device="cpu",
+        fill_overlap=True,
+    )
+    return cfg, truths
+
+
+def _recovered(cfg, truths) -> bool:
+    recs = list(fasta.read_seqs(cfg.output_seqs))
+    return [r.seq.rstrip("Nn") for r in recs] == [t.strip("N") for t in truths]
+
+
+def test_fill_overlap_polishes_to_truth(tmp_path, monkeypatch):
+    """tests/test_pipeline.py::test_bulk_pipeline_fill_overlap on the port:
+    the tail claimer fills batches with the plain device fill, the host
+    lookahead the front; a device-filled batch is consumed and every contig
+    comes back to the truth.  The first polish waits for the first device
+    fill to finish, so the hedge cannot win that batch."""
+    monkeypatch.setenv("GPTPU_FORCE_DEVICE_SCAN", "1")
+    filled = threading.Event()
+    dev_fill, polish = BFBuilder.build_batch_device, bulk.polish_batch_records
+
+    def fill_then_signal(self, ids, device="cuda"):
+        out = dev_fill(self, ids, device=device)
+        filled.set()
+        return out
+
+    def polish_after_fill(*args, **kw):
+        filled.wait(timeout=120)
+        return polish(*args, **kw)
+
+    monkeypatch.setattr(BFBuilder, "build_batch_device", fill_then_signal)
+    monkeypatch.setattr(bulk, "polish_batch_records", polish_after_fill)
+    cfg, truths = _overlap_cfg(tmp_path)
+    calls = bloom_sort.promote_reference.calls.value
+    totals = bulk.run_bulk(cfg)
+    assert totals["contigs"] == 4
+    assert totals["device_filled_batches"] >= 1
+    assert bloom_sort.promote_reference.calls.value > calls
+    assert totals["timing"]["bf_fill_bg_s"] >= 0
+    assert _recovered(cfg, truths)
+
+
+def _blocking_device(monkeypatch, release: threading.Event, fail=False):
+    """Patch the device fill to wait for `release`, then fill (or raise)."""
+    orig = BFBuilder.build_batch_device
+    claimed = []
+
+    def slow(self, ids, device="cuda"):
+        claimed.append(tuple(ids))
+        release.wait(timeout=120)
+        if fail:
+            raise RuntimeError("device fill failed")
+        return orig(self, ids, device=device)
+
+    monkeypatch.setattr(BFBuilder, "build_batch_device", slow)
+    return claimed
+
+
+def test_fill_overlap_hedge_takes_host_filters(tmp_path, monkeypatch):
+    """A device fill still running when its batch is due is hedged by a
+    host fill: the run finishes with the host's filters (the device fill
+    blocks until after run_bulk returns, so no timing is involved)."""
+    release = threading.Event()
+    claimed = _blocking_device(monkeypatch, release)
+    cfg, truths = _overlap_cfg(tmp_path)
+    try:
+        totals = bulk.run_bulk(cfg)
+    finally:
+        release.set()
+    assert claimed, "the device claimer never fired"
+    assert totals["device_filled_batches"] == 0
+    assert totals["contigs"] == 4 and _recovered(cfg, truths)
+
+
+def test_fill_overlap_failed_hedge_waits_for_device(tmp_path, monkeypatch):
+    """Repair of goldpolish_tpu/pipeline/bulk.py:481: a host hedge that
+    fails does not win; the consumer waits for the device fill and uses it
+    (the JAX package returns the failed hedge and raises)."""
+    release = threading.Event()
+    claimed = _blocking_device(monkeypatch, release)
+    host = BFBuilder.build_batch
+
+    def failing_host(self, ids):
+        if tuple(ids) in claimed:  # only the hedge fills a claimed batch
+            release.set()
+            raise RuntimeError("host hedge failed")
+        return host(self, ids)
+
+    monkeypatch.setattr(BFBuilder, "build_batch", failing_host)
+    cfg, truths = _overlap_cfg(tmp_path)
+    try:
+        totals = bulk.run_bulk(cfg)
+    finally:
+        release.set()
+    assert release.is_set() and claimed
+    assert totals["device_filled_batches"] >= 1
+    assert totals["contigs"] == 4 and _recovered(cfg, truths)
+
+
+def test_fill_overlap_device_failure_raises(tmp_path, monkeypatch):
+    """A failed device fill reaches the consumer: no host fill masks it."""
+    release = threading.Event()
+    release.set()
+    _blocking_device(monkeypatch, release, fail=True)
+    cfg, _truths = _overlap_cfg(tmp_path)
+    with pytest.raises(RuntimeError, match="device fill failed"):
+        bulk.run_bulk(cfg)
+
+
+def test_fill_overlap_late_device_failure_fails_run(tmp_path, monkeypatch):
+    """A device fill that fails after its batch took the hedge's host
+    filters still fails the run: the claimed batch's polish waits until
+    the claimer has failed, so the failure lands after the consumer."""
+    release = threading.Event()
+    claimed = _blocking_device(monkeypatch, release, fail=True)
+    polish = bulk.polish_batch_records
+
+    def polish_then_fail_device(records, *args, **kw):
+        if tuple(h.split()[0] for h, _ in records) in claimed:
+            release.set()
+            for t in threading.enumerate():
+                if t.name == "bf-fill-dev":
+                    t.join(timeout=120)
+        return polish(records, *args, **kw)
+
+    monkeypatch.setattr(bulk, "polish_batch_records", polish_then_fail_device)
+    cfg, _truths = _overlap_cfg(tmp_path)
+    with pytest.raises(RuntimeError, match="device fill failed"):
+        bulk.run_bulk(cfg)
+    assert claimed and os.path.exists(cfg.output_seqs)
+
+
+def test_fill_overlap_k_bound_at_startup(tmp_path):
+    """Repair of goldpolish_tpu/pipeline/bulk.py:254: the startup k bound is
+    bloom_sort.KHALO + 1, checked before any work."""
+    cfg, _truths = _overlap_cfg(tmp_path, k_values=(34, 32))
+    with pytest.raises(ValueError, match=f"k <= {bloom_sort.KHALO + 1}"):
+        bulk.run_bulk(cfg)
+    assert not os.path.exists(cfg.workspace)
