@@ -20,28 +20,33 @@ raises and the script exits non-zero without the result line.
             its truth's k-mers (bulk's per-batch filter: heads under S) and
             (b) with an N every 100th byte against the p = 0.75 filter
             (heads above S = 4096, needing sites above s_ins = 1024), all
-            nine outputs; each for k in 32, 28, 24, 20.  Times from CUDA
-            events after warm-up.
+            nine outputs; each for k in 32, 28, 24, 20, with the call's
+            scratch bytes (gp_scan_eval_scratch_bytes).  Times after
+            warm-up: `ms` and `plain_ms` per call of back-to-back calls
+            between two CUDA events (host included), `device_ms` the
+            device time per call (the profiler's summed CUDA events; null
+            where it recorded none).
 4. main     a seeded synthetic genome of 4,641,652 bp (the length of E. coli
             K-12 MG1655) in 4 contigs, mutated every ~700 bp (sub/ins/del)
             with a 60-bp `n` gap every 50 kbp (92 gaps), covered by
             simulated reads with a PAF, polished by the CLI's default chain
-            (ntEdit -> mask -> sealer -> upper) four times: `--backend
-            hybrid -k 32 -k 28 -k 24 -k 20 -b 1` with
-            GPTPU_FORCE_DEVICE_SCAN=1 and the fused eval armed (the
-            default), the same with GPTPU_DEVICE_EVAL=0 (the dense scan
-            alone), then `--backend numpy`, then the first arm with
-            `--fill-overlap` (the device fill claims batches from the tail).
-            Requires the first three outputs byte-identical; the eval arm:
-            scan_eval launches > 0, walker table hits > 0; the eval-off
-            arm: scan kernel launches > 0; the overlap arm: 4 contigs, at
-            least one batch polished with device filters, every bloom_sort
-            launch count > 0 (its bytes' equality with the first arm is
-            reported, not required: the device filter is a superset of the
-            host fill's); no plain-version call in any arm.  Prints each
-            arm's wall time, Bloom-fill seconds, ntEdit stage sum, table
-            hits / giveups, and the sealer's seconds and gaps found /
-            closed.
+            (ntEdit -> mask -> sealer -> upper) four times, each with
+            `-k 32 -k 28 -k 24 -k 20 -b 1`: the CLI's defaults (no
+            --backend flag: hybrid on cuda, the fused eval armed), then
+            `--backend hybrid` with GPTPU_DEVICE_EVAL=0 (the dense scan
+            alone), then `--backend numpy`, then the defaults with
+            `--fill-overlap` (the device fill claims batches from the tail);
+            the hybrid arms with GPTPU_FORCE_DEVICE_SCAN=1.  Requires the
+            first three outputs byte-identical; the default arm: scan_eval
+            launches > 0, walker table hits > 0; the eval-off arm: scan
+            kernel launches > 0; the overlap arm: 4 contigs, at least one
+            batch polished with device filters, both fill kernels launched
+            (its bytes' equality with the default arm is reported, not
+            required: the device filter is a superset of the host fill's);
+            no plain-version call in any arm.  Every count is set to 0
+            just before an arm and read just after it.  Prints each arm's
+            wall time, Bloom-fill seconds, ntEdit stage sum, table hits /
+            giveups, and the sealer's seconds and gaps found / closed.
             Before the arms, the fill phase: for each of the 4 batches
             (bulk's builder and read choice: ~1,900 reads, ~11.6 Mbases,
             a 10 MiB counting filter and a 4 MiB filter per k), the device
@@ -49,10 +54,10 @@ raises and the script exits non-zero without the result line.
             single dispatch, required bit-equal; the chunked build (the
             default 2^21-base chunks) equal to single dispatch; the host
             fill (native.fill_bfs_stream) contained in it, with the share
-            of extra bits printed.  Times: one k's fill (keys, sort, runs,
-            slot totals, promotion) from CUDA events, kernel and plain, and
-            each whole fill's seconds (upload and copy back included)
-            beside the host fill's.
+            of extra bits printed.  Times: one k's fill, kernel and
+            plain, its pass A (`count`) and pass B (`promote`, with the
+            words' zeroing) alone, and each whole fill's seconds (upload
+            and copy back included) beside the host fill's.
 5. sealer   the sealer stage alone, on the 4.64 Mbp truth with a 60-bp
             lowercase gap every 18 kbp (256 gaps) and 16 MiB filters of the
             truth's k-mers at k = 32, 28, 24, 20 (h = 4): seal_records with
@@ -64,10 +69,11 @@ raises and the script exits non-zero without the result line.
             required equal as per-direction (k-mer, mask) sets.
 
 Then a {"kernels": [...]} line (launches counted on the path each kernel
-serves: the main path's eval arm for scan_eval, its eval-off arm for the
-scan, its overlap arm for the fill (the sum of its four wrappers), phase 5
-for the BFS; the probe is fused into all three and launches nothing on its
-own), and last the line
+serves: the main path's default arm for scan_eval, its eval-off arm for
+the scan, its overlap arm for the fill (the sum of its two wrappers),
+phase 5 for the BFS; the probe is fused into all three and launches
+nothing on its own; each kernel's bound from its call's own inputs, see
+HBM_BYTES_PER_S), and last the line
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
@@ -98,6 +104,13 @@ GAP_LEN = 60
 # the whole genome, so the false-positive branching matches bulk's
 SEALER_FILTER_BYTES = 16 << 20
 SINGLE_DISPATCH = 1 << 40  # a chunk bound above any batch: one dispatch
+# a kernel's bound: the larger of its bytes (each input read once, each
+# output written once) over the H100's HBM rate and its operations (one per
+# derived hash value or probe index) over the card's 67 T/s scalar rate
+# (the H100 SXM's peak FP32 rate; integer work has no published peak of
+# its own, so this side is a floor)
+HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
 
 
 def emit(**obj) -> None:
@@ -127,6 +140,51 @@ def time_ms(fn, reps: int, warm: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def tensor_bytes(*objs) -> int:
+    """Bytes of the tensors among objs."""
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in objs if isinstance(t, torch.Tensor))
+
+
+def bound(nbytes: int, ops: int) -> dict:
+    """bound_ms and bound_by of a kernel call (see HBM_BYTES_PER_S)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes": nbytes, "bound_ops": ops}
+
+
+def device_events(prof) -> list[tuple[str, int, int]]:
+    """(name, start ns, duration ns) of every CUDA event (kernels, memsets,
+    copies) a finished torch.profiler run recorded."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.start_ns(), e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int, warm: int = 2, only: str = "") -> float | None:
+    """Mean device milliseconds per call: the summed durations of the CUDA
+    events that `reps` calls run (torch.profiler), after warm-up; with
+    `only`, of the events whose name holds it.  Unlike time_ms it leaves
+    out the host's time between launches.  None where the profiler
+    recorded no such event (its device tracing is not always there)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in device_events(prof) if only in e[0]]
+    return sum(d for _n, _s, d in events) / reps / 1e6 if events else None
 
 
 def random_words(rng, bits: int) -> np.ndarray:
@@ -169,7 +227,9 @@ def phase_kernels(rng):
         "equal": bool(torch.equal(got, want)), "max_abs_err": probe_err,
         "present_share": float(want.float().mean().item()),
         "ms": time_ms(lambda: bp.probe_lo32(words, FILTER_BITS, lo), 50),
+        "device_ms": device_ms(lambda: bp.probe_lo32(words, FILTER_BITS, lo), 50),
         "plain_ms": time_ms(lambda: bp.probe_lo32_reference(words, FILTER_BITS, lo), 5),
+        **bound(tensor_bytes(words, lo, want), lo.numel()),
     }
     emit(phase="kernel_probe_lo32", **probe)
     if not probe["equal"]:
@@ -194,8 +254,12 @@ def phase_kernels(rng):
             )),
             "ms": time_ms(lambda: sc.scan_present_packed(
                 words, FILTER_BITS, 4, k, codes), 20),
+            "device_ms": device_ms(lambda: sc.scan_present_packed(
+                words, FILTER_BITS, 4, k, codes), 20),
             "plain_ms": time_ms(lambda: sc.scan_present_packed_reference(
                 words, FILTER_BITS, 4, k, codes), 3, warm=1),
+            **bound(tensor_bytes(words, codes, want),
+                    4 * codes.shape[0] * (codes.shape[1] - k + 1)),
         }
         scans.append(row)
         emit(phase="kernel_scan_present_packed", **row)
@@ -224,8 +288,9 @@ def phase_scan_eval(rng):
     call shape, for every k, on two filters (see the module docstring)."""
     import torch
 
-    from goldpolish_tpu_torch.ops import bloom
+    from goldpolish_tpu_torch.ops import bloom, cuda_build
     from goldpolish_tpu_torch.ops import nthash as nt
+    from goldpolish_tpu_torch.ops import scan_conv as sc
     from goldpolish_tpu_torch.ops import scan_eval as se
     from goldpolish_tpu_torch.ops import siteeval
     from goldpolish_tpu_torch.polish.multik import ntedit_config_for_k
@@ -251,6 +316,10 @@ def phase_scan_eval(rng):
                          for i in range(4)])
         broken = rows.copy()
         broken[:, ::100] = ord("N")
+        scratch = cuda_build.lib().gp_scan_eval_scratch_bytes(
+            4, rows.shape[1], k, EVAL_S_MAX, ecfg.resolved_s_ins())
+        cst = se._device_consts(k, ecfg.jump, ecfg.max_ins, ecfg.max_del, str(dev))
+        consts = (cst.u64, cst.u8, *sc._device_tables(k, str(dev)))
         for label, filt, codes in (("truth", words, rows), ("p75_n100", p75, broken)):
             codes = torch.from_numpy(codes).to(dev)
             got = se.scan_eval(filt, FILTER_BITS, 4, codes, ecfg, tables)
@@ -268,8 +337,13 @@ def phase_scan_eval(rng):
                     if w.numel() else 0 for g, w in zip(got, want)),
                 "ms": time_ms(lambda: se.scan_eval(filt, FILTER_BITS, 4, codes,
                                                    ecfg, tables), 20),
+                "device_ms": device_ms(lambda: se.scan_eval(filt, FILTER_BITS, 4, codes,
+                                                            ecfg, tables), 20),
                 "plain_ms": time_ms(lambda: se.scan_eval_reference(
                     filt, FILTER_BITS, 4, codes, ecfg, tables), 3, warm=1),
+                "scratch_bytes": scratch,
+                **bound(tensor_bytes(filt, codes, *consts, *want),
+                        4 * codes.shape[0] * (codes.shape[1] - k + 1)),
             }
             rows_out.append(row)
             emit(phase="kernel_scan_eval", **row)
@@ -371,11 +445,26 @@ def phase_fill(argv, ids, work):
         chunked, chunked_s = timed(lambda: bs.device_fill_bfs_sorted(*args))
         host, host_s = timed(lambda: builder.build_batch([name]).bfs)
         st = bs.upload_stream(reads, thrs, torch.device("cuda"))
-        ms, plain_ms = [], []
+        totals = torch.zeros(cbf, dtype=torch.int32, device="cuda")
+        words = torch.zeros(bf_bytes // 4, dtype=torch.int32, device="cuda")
+        ms, dev_ms, plain_ms, count_ms, promote_ms = [], [], [], [], []
         for ki, k in enumerate(K_VALUES):
-            fill = (st, k, ki - 2, h, cbf, bf_bytes * 8)
+            fill = ([st], k, ki - 2, h, cbf, bf_bytes * 8)
             ms.append(time_ms(lambda: bs.fill_k(bs.KERNEL_OPS, *fill), 5))
+            dev_ms.append(device_ms(lambda: bs.fill_k(bs.KERNEL_OPS, *fill), 5))
             plain_ms.append(time_ms(lambda: bs.fill_k(bs.PLAIN_OPS, *fill), 1, warm=1))
+            # each pass alone: pass A adding into the totals (its time does
+            # not depend on them), pass B on this k's totals with the words
+            # zeroed before each call (the zeroing, 4 MiB, timed with it)
+            count_ms.append(time_ms(lambda: bs.count(*st, k, h, cbf, totals), 5))
+            totals.zero_()
+            bs.count(*st, k, h, cbf, totals)
+            promote_ms.append(time_ms(lambda: (words.zero_(), bs.promote(
+                *st, k, ki - 2, h, cbf, totals, bf_bytes * 8, words)), 5))
+        # the least time of one k's fill: the stream read once, the filter
+        # written once (the totals are scratch); operations: the windows' h
+        # hash values in each pass
+        fill_bound = bound(tensor_bytes(*st) + bf_bytes, 2 * h * st[0].numel())
         extra = [
             int(np.unpackbits(d.array & ~hb.array).sum())
             / max(1, int(np.unpackbits(hb.array).sum()))
@@ -391,7 +480,9 @@ def phase_fill(argv, ids, work):
             "host_contained": all(not np.any(hb.array & ~d.array)
                                   for d, hb in zip(got, host)),
             "extra_bit_share": extra,
-            "ms": ms, "plain_ms": plain_ms, "fill_s": fill_s, "plain_fill_s": plain_s,
+            "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "count_ms": count_ms,
+            "promote_ms": promote_ms, **fill_bound,
+            "fill_s": fill_s, "plain_fill_s": plain_s,
             "chunked_fill_s": chunked_s, "host_fill_s": host_s,
         }
         rows.append(row)
@@ -463,121 +554,144 @@ class WalkTally:
         self.native.polish_contig = self.inner
 
 
-def phase_main(rng):
-    from goldpolish_tpu_torch import cli
-    from goldpolish_tpu_torch.io import seqindex
+def main_counters() -> dict:
+    """The launch counts of every kernel wrapper and the call counts of
+    every plain version that the main path can reach."""
     from goldpolish_tpu_torch.ops import bloom_probe as bp
     from goldpolish_tpu_torch.ops import bloom_sort as bs
     from goldpolish_tpu_torch.ops import scan_conv as sc
     from goldpolish_tpu_torch.ops import scan_eval as se
+
+    return {
+        "scan_eval_launches": se.scan_eval.launches,
+        "scan_kernel_launches": sc.scan_present_packed.launches,
+        "probe_kernel_launches": bp.probe_lo32.launches,
+        **{f"fill_{op.__name__}_launches": op.launches for op in bs.KERNEL_OPS},
+        "plain_scan_eval": se.scan_eval_reference.calls,
+        "plain_scan": sc.scan_present_packed_reference.calls,
+        "plain_probe": bp.probe_lo32_reference.calls,
+        **{f"plain_fill_{op.__name__}": op.calls for op in bs.PLAIN_OPS},
+    }
+
+
+def prepare_main(rng, work: str) -> dict:
+    """The main path's inputs in `work`, both indexed up front (the CLI
+    caches `<input>.index`), so every timed run does the same work."""
+    from goldpolish_tpu_torch.io import seqindex
+
+    t0 = time.monotonic()
+    truths, draft_bp, draft, reads, paf, n_reads = make_inputs(rng, work)
+    for path in (draft, reads):
+        seqindex.SeqIndex.build(path).save(path + ".index")
+    emit(phase="inputs", genome_bp=GENOME_BP, contigs=N_CONTIGS,
+         draft_bp=draft_bp, reads=n_reads, seconds=time.monotonic() - t0)
+    return {"truths": truths, "draft_bp": draft_bp, "draft": draft, "reads": reads,
+            "paf": paf, "work": work}
+
+
+def cli_argv(inp: dict, name: str, *extra: str) -> list[str]:
+    """The CLI's arguments for one arm: its defaults plus `extra`."""
+    work = inp["work"]
+    argv = [inp["draft"], inp["reads"], os.path.join(work, f"polished_{name}.fa"),
+            "--mappings", inp["paf"], "-b", "1", "-m", os.path.join(work, f"ws_{name}"),
+            *extra]
+    for k in K_VALUES:
+        argv += ["-k", str(k)]
+    return argv
+
+
+def run_arm(inp: dict, name: str, env: dict, *extra: str) -> dict:
+    """One CLI run of the main path: every count set to 0 just before it
+    and read just after; prints its line and returns what it saw."""
+    from goldpolish_tpu_torch import cli
     from goldpolish_tpu_torch.pipeline import bulk
+
+    argv = cli_argv(inp, name, *extra)
+    out = argv[2]
+    counters = main_counters()
+    saved = {key: os.environ.pop(key, None) for key in env}
+    os.environ.update({key: v for key, v in env.items() if v is not None})
+    run_bulk, run = bulk.run_bulk, {}
+    bulk.run_bulk = lambda cfg: run.update(run_bulk(cfg)) or run
+    for c in counters.values():
+        c.reset()
+    try:
+        t = time.monotonic()
+        with SealerTally() as tally, WalkTally() as walk:
+            rc = cli.main(argv)
+        wall = time.monotonic() - t
+    finally:
+        bulk.run_bulk = run_bulk
+        for key, v in saved.items():
+            os.environ.pop(key, None)
+            if v is not None:
+                os.environ[key] = v
+    counts = {key: c.value for key, c in counters.items()}
+    if rc != 0:
+        raise RuntimeError(f"cli.main ({name}) returned {rc}")
+    with open(out, "rb") as f:
+        data = f.read()
+    recs = read_fasta(out)
+    truth = dict(inp["truths"])
+    exact = sum(1 for n, s in recs if s.upper() == truth.get(n))
+    line = dict(wall_s=wall, polished_bases_per_s=inp["draft_bp"] / wall,
+                contigs=len(recs), contigs_equal_truth=exact,
+                share_equal_truth=exact / N_CONTIGS, ntedit_s=tally.ntedit_s,
+                bf_fill_bg_s=run["timing"].get("bf_fill_bg_s"),
+                device_filled_batches=run["device_filled_batches"],
+                sealer_s=tally.sealer_s, gaps_found=tally.gaps_found,
+                gaps_closed=tally.gaps_closed, table_hits=walk.hits,
+                table_giveups=walk.giveups, **counts,
+                plain_calls=sum(v for key, v in counts.items() if key.startswith("plain")))
+    emit(phase=f"main_{name}", **line)
+    return {**line, "bytes": data, "records": recs, "argv": argv}
+
+
+# the hybrid arms pin the device scan (the A/B placement lock would
+# otherwise pick per workload class), so the arms compare like with like
+FORCE = {"GPTPU_FORCE_DEVICE_SCAN": "1"}
+
+
+def phase_main(rng):
+    from goldpolish_tpu_torch.ops import bloom_sort as bs
 
     work = os.path.join(ROOT, "goldpolish_tpu_torch", "build", f"smoke_{os.getpid()}")
     os.makedirs(work)
     try:
-        t0 = time.monotonic()
-        truths, draft_bp, draft, reads, paf, n_reads = make_inputs(rng, work)
-        # index both inputs up front (the CLI caches `<input>.index`), so the
-        # timed runs below do the same work
-        for path in (draft, reads):
-            seqindex.SeqIndex.build(path).save(path + ".index")
-        emit(phase="inputs", genome_bp=GENOME_BP, contigs=N_CONTIGS,
-             draft_bp=draft_bp, reads=n_reads, seconds=time.monotonic() - t0)
-
-        def cli_argv(name: str, backend: str, *extra: str) -> list[str]:
-            argv = [draft, reads, os.path.join(work, f"polished_{name}.fa"),
-                    "--mappings", paf, "-b", "1",
-                    "-m", os.path.join(work, f"ws_{name}"),
-                    "--backend", backend, *extra]
-            for k in K_VALUES:
-                argv += ["-k", str(k)]
-            return argv
-
-        fills = phase_fill(cli_argv("fill", "hybrid"), [n for n, _t in truths], work)
-
-        def polish(name: str, backend: str, env: dict, *extra: str):
-            argv = cli_argv(name, backend, *extra)
-            out = argv[2]
-            saved = {key: os.environ.pop(key, None) for key in env}
-            os.environ.update({key: v for key, v in env.items() if v is not None})
-            run_bulk, run = bulk.run_bulk, {}
-            bulk.run_bulk = lambda cfg: run.update(run_bulk(cfg)) or run
-            for c in counters.values():
-                c.reset()
-            try:
-                t = time.monotonic()
-                with SealerTally() as tally, WalkTally() as walk:
-                    rc = cli.main(argv)
-                wall = time.monotonic() - t
-            finally:
-                bulk.run_bulk = run_bulk
-                for key, v in saved.items():
-                    os.environ.pop(key, None)
-                    if v is not None:
-                        os.environ[key] = v
-            counts = {key: c.value for key, c in counters.items()}
-            if rc != 0:
-                raise RuntimeError(f"cli.main ({name}) returned {rc}")
-            with open(out, "rb") as f:
-                data = f.read()
-            recs = read_fasta(out)
-            truth = dict(truths)
-            exact = sum(1 for n, s in recs if s.upper() == truth.get(n))
-            emit(phase=f"main_{name}", wall_s=wall,
-                 polished_bases_per_s=draft_bp / wall,
-                 contigs=len(recs), contigs_equal_truth=exact,
-                 share_equal_truth=exact / N_CONTIGS, ntedit_s=tally.ntedit_s,
-                 bf_fill_bg_s=run["timing"].get("bf_fill_bg_s"),
-                 device_filled_batches=run["device_filled_batches"],
-                 sealer_s=tally.sealer_s, gaps_found=tally.gaps_found,
-                 gaps_closed=tally.gaps_closed, table_hits=walk.hits,
-                 table_giveups=walk.giveups, **counts,
-                 plain_calls=sum(v for key, v in counts.items() if key.startswith("plain")))
-            return data, recs, tally, walk, counts, run
-
-        counters = {
-            "scan_eval_launches": se.scan_eval.launches,
-            "scan_kernel_launches": sc.scan_present_packed.launches,
-            "probe_kernel_launches": bp.probe_lo32.launches,
-            **{f"fill_{op.__name__}_launches": op.launches for op in bs.KERNEL_OPS},
-            "plain_scan_eval": se.scan_eval_reference.calls,
-            "plain_scan": sc.scan_present_packed_reference.calls,
-            "plain_probe": bp.probe_lo32_reference.calls,
-            **{f"plain_fill_{op.__name__}": op.calls for op in bs.PLAIN_OPS},
-        }
-        force = {"GPTPU_FORCE_DEVICE_SCAN": "1"}
-        hy, hy_recs, hy_seal, hy_walk, on, _run = polish(
-            "hybrid", "hybrid", {**force, "GPTPU_DEVICE_EVAL": None})
-        off_bytes, _r, _t, _w, off, _run = polish(
-            "hybrid_eval_off", "hybrid", {**force, "GPTPU_DEVICE_EVAL": "0"})
-        np_bytes, _r, _t, _w, _c, _run = polish("numpy", "numpy", {})
-        ov_bytes, ov_recs, _t, _w, ov, ov_run = polish(
-            "hybrid_fill_overlap", "hybrid", {**force, "GPTPU_DEVICE_EVAL": None},
-            "--fill-overlap")
-        identical = hy == np_bytes and off_bytes == np_bytes
-        emit(phase="main_check", hybrid_equals_numpy=hy == np_bytes,
-             eval_off_equals_numpy=off_bytes == np_bytes, output_bytes=len(hy),
-             fill_overlap_equals_hybrid=ov_bytes == hy)
-        if not identical:
+        inp = prepare_main(rng, work)
+        truths = inp["truths"]
+        fills = phase_fill(cli_argv(inp, "fill"), [n for n, _t in truths], work)
+        # the first arm runs through the CLI's defaults: no --backend flag
+        on = run_arm(inp, "default", {**FORCE, "GPTPU_DEVICE_EVAL": None})
+        off = run_arm(inp, "hybrid_eval_off", {**FORCE, "GPTPU_DEVICE_EVAL": "0"},
+                      "--backend", "hybrid")
+        host = run_arm(inp, "numpy", {}, "--backend", "numpy")
+        ov = run_arm(inp, "fill_overlap", {**FORCE, "GPTPU_DEVICE_EVAL": None},
+                     "--fill-overlap")
+        emit(phase="main_check", default_equals_numpy=on["bytes"] == host["bytes"],
+             eval_off_equals_numpy=off["bytes"] == host["bytes"],
+             output_bytes=len(on["bytes"]),
+             fill_overlap_equals_default=ov["bytes"] == on["bytes"])
+        if on["bytes"] != host["bytes"] or off["bytes"] != host["bytes"]:
             raise AssertionError("a hybrid arm's output differs from the numpy backend")
-        if len(hy_recs) != N_CONTIGS:
-            raise AssertionError(f"{len(hy_recs)} contigs out, {N_CONTIGS} in")
-        if hy_seal.gaps_found <= 0:
+        if len(on["records"]) != N_CONTIGS:
+            raise AssertionError(f"{len(on['records'])} contigs out, {N_CONTIGS} in")
+        if on["gaps_found"] <= 0:
             raise AssertionError("the sealer found no gap on the main path")
         if on["scan_eval_launches"] <= 0:
-            raise AssertionError("the main path launched no scan_eval kernel")
-        if hy_walk.hits <= 0:
+            raise AssertionError("the default arm launched no scan_eval kernel")
+        if on["table_hits"] <= 0:
             raise AssertionError("the walker replayed no site from the eval's tables")
         if off["scan_kernel_launches"] <= 0 or off["scan_eval_launches"]:
             raise AssertionError("the eval-off arm did not run the scan kernel alone")
-        if len(ov_recs) != N_CONTIGS:
-            raise AssertionError(f"the overlap arm wrote {len(ov_recs)} contigs")
-        if ov_run["device_filled_batches"] <= 0:
+        if len(ov["records"]) != N_CONTIGS:
+            raise AssertionError(f"the overlap arm wrote {len(ov['records'])} contigs")
+        if ov["device_filled_batches"] <= 0:
             raise AssertionError("no batch of the overlap arm used device filters")
         fill_launches = [ov[f"fill_{op.__name__}_launches"] for op in bs.KERNEL_OPS]
         if min(fill_launches) <= 0:
             raise AssertionError(f"the overlap arm missed a fill kernel: {fill_launches}")
-        if any(c[key] for c in (on, off, ov) for key in c if key.startswith("plain")):
+        if any(arm["plain_calls"] for arm in (on, off, ov)):
             raise AssertionError("a plain version ran during a CUDA run")
         launches = {"scan_eval": on["scan_eval_launches"],
                     "scan_present_packed": off["scan_kernel_launches"],
@@ -673,6 +787,20 @@ def bfs_err(got, want) -> int:
     return err
 
 
+def bfs_bound(args, out, W: int) -> dict:
+    """The BFS's bound: the seeds read once, the filter words it probes (4
+    children of every logged k-mer, h = 4 probes each; at most the whole
+    filter), the logged (k-mer, mask) pairs and the counts written once."""
+    vis, msk, n_vis, over = out
+    logged = int(n_vis.clamp(max=vis.shape[2]).sum().item())
+    probes = 4 * 4 * int(n_vis.sum().item())
+    words = args[0]
+    nbytes = (tensor_bytes(*args[4:]) + min(tensor_bytes(words), 4 * probes)
+              + logged * (vis.element_size() + msk.element_size())
+              + tensor_bytes(n_vis, over))
+    return bound(nbytes, probes)
+
+
 def phase_sealer(truths):
     import torch
 
@@ -740,8 +868,10 @@ def phase_sealer(truths):
             "overflowed": int(want[3].any(dim=1).sum().item()),
             "logged": int(want[2].sum().item()),
             "ms": time_ms(lambda: dbg_bfs.dbg_bfs(*args, W, bfs.V), 20),
+            "device_ms": device_ms(lambda: dbg_bfs.dbg_bfs(*args, W, bfs.V), 20),
             "plain_ms": time_ms(lambda: dbg_bfs.dbg_bfs_reference(*args, W, bfs.V),
                                 2, warm=1),
+            **bfs_bound(args, want, W),
         }
         rows.append(row)
         emit(phase="kernel_dbg_bfs", **row)
@@ -789,6 +919,9 @@ def main() -> int:
     launches, truths, fills = phase_main(rng)
     bfs_launches, bfs_rows = phase_sealer(truths)
     first = scans[0]
+    # no single PyTorch call computes any of these functions: library_ms null
+    # (PERF.md's kernel table gives the reason for each)
+    keys = ("device_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [
         {
             "name": "scan_eval", "route": "cuda",
@@ -797,6 +930,7 @@ def main() -> int:
             "launches": launches["scan_eval"],
             "max_abs_err": max(r["max_abs_err"] for r in evals),
             "ms": evals[0]["ms"], "plain_ms": evals[0]["plain_ms"],
+            **{key: evals[0][key] for key in keys}, "library_ms": None,
         },
         {
             "name": "scan_present_packed", "route": "cuda",
@@ -805,6 +939,7 @@ def main() -> int:
             "launches": launches["scan_present_packed"],
             "max_abs_err": max(r["max_abs_err"] for r in scans),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
+            **{key: first[key] for key in keys}, "library_ms": None,
         },
         {
             "name": "probe_lo32", "route": "cuda",
@@ -814,6 +949,7 @@ def main() -> int:
             "fused_into": ["scan_eval", "scan_present_packed", "dbg_bfs"],
             "max_abs_err": probe["max_abs_err"],
             "ms": probe["ms"], "plain_ms": probe["plain_ms"],
+            **{key: probe[key] for key in keys}, "library_ms": None,
         },
         {
             "name": "dbg_bfs", "route": "cuda",
@@ -822,6 +958,7 @@ def main() -> int:
             "launches": bfs_launches,
             "max_abs_err": max(r["max_abs_err"] for r in bfs_rows),
             "ms": bfs_rows[0]["ms"], "plain_ms": bfs_rows[0]["plain_ms"],
+            **{key: bfs_rows[0][key] for key in keys}, "library_ms": None,
         },
         {
             "name": "bloom_sort_fill", "route": "cuda",
@@ -830,6 +967,8 @@ def main() -> int:
             "launches": launches["bloom_sort_fill"],
             "max_abs_err": max(r["max_abs_err"] for r in fills),
             "ms": fills[0]["ms"][0], "plain_ms": fills[0]["plain_ms"][0],
+            "device_ms": fills[0]["device_ms"][0],
+            **{key: fills[0][key] for key in keys[1:]}, "library_ms": None,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,124 @@
+#!/usr/bin/env python3
+"""Where the time goes on the port's main path, on one GPU.
+
+Run from the repository root:
+
+    python3 chip_trace.py [--root DIR] [--runs N] [--no-trace]
+
+It polishes chip_smoke.py's main-path input (the seeded 4.64 Mbp gapped
+draft, its reads and PAF, `-b 1`, k = 32, 28, 24, 20, sealer on) with two
+arms of the CLI: `default` (hybrid with the fused eval, host fill) and
+`fill_overlap` (the same with --fill-overlap: the device fill claims
+batches from the tail), both with GPTPU_FORCE_DEVICE_SCAN=1 and an explicit
+`--backend hybrid`.  One warm-up run of each, then N runs of each in
+alternated order (default, overlap / overlap, default / ...), one JSON line
+per run (wall seconds, Bloom-fill seconds, ntEdit sum, device-filled
+batches, kernel launch counts), then one torch.profiler trace of each arm
+(CPU and CUDA activities): the device's busy time (the union of the
+intervals of every CUDA event: kernels, copies, memsets), its idle share
+of the traced run, and device time by event name (largest first).
+
+--root imports goldpolish_tpu_torch from another checkout (for example an
+unpacked parent commit), so two commits can be compared within one call.
+Imports nothing of JAX; needs CUDA (exits 2 without it).
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ARMS = {"default": (), "fill_overlap": ("--fill-overlap",)}
+
+
+def device_profile(events) -> dict:
+    """Busy time (union of the CUDA events' intervals), and device time by
+    event name, from chip_smoke.device_events of a profiler run."""
+    spans, by_name = [], {}
+    for name, start, dur in events:
+        spans.append((start, start + dur))
+        by_name[name] = by_name.get(name, 0) + dur
+    busy, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
+    return {"device_busy_ms": busy / 1e6, "device_events": len(spans),
+            "device_ms_by_name": {name: ns / 1e6 for name, ns in top}}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=HERE,
+                    help="checkout whose goldpolish_tpu_torch to run")
+    ap.add_argument("--runs", type=int, default=4, help="timed runs of each arm")
+    ap.add_argument("--no-trace", action="store_true")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_trace: CUDA is not available", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.root)
+    import chip_smoke as cs  # this checkout's, beside this script
+
+    sys.path.insert(0, root)
+    import goldpolish_tpu_torch
+    from goldpolish_tpu_torch import native
+    from goldpolish_tpu_torch.ops import cuda_build
+
+    if not goldpolish_tpu_torch.__file__.startswith(root):
+        raise RuntimeError(f"imported {goldpolish_tpu_torch.__file__}, not {root}")
+    print(cs.card_line(), flush=True)
+    cs.emit(phase="device", name=torch.cuda.get_device_name(0), root=root)
+    cuda_build.lib()
+    native.lib()
+    work = os.path.join(HERE, "goldpolish_tpu_torch", "build", f"trace_{os.getpid()}")
+    os.makedirs(work)
+    try:
+        inp = cs.prepare_main(np.random.default_rng(cs.SEED), work)
+
+        def run(arm: str, i: int) -> dict:
+            env = {**cs.FORCE, "GPTPU_DEVICE_EVAL": None}
+            line = cs.run_arm(inp, f"{arm}_{i}", env, "--backend", "hybrid", *ARMS[arm])
+            shutil.rmtree(os.path.join(work, f"ws_{arm}_{i}"), ignore_errors=True)
+            return line
+
+        for arm in ARMS:
+            run(arm, 0)
+        order = list(ARMS)
+        for i in range(1, args.runs + 1):
+            for arm in order if i % 2 else order[::-1]:
+                run(arm, i)
+        if args.no_trace:
+            return 0
+        from torch.profiler import ProfilerActivity, profile
+
+        for arm in ARMS:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t = time.monotonic()
+                line = run(arm, args.runs + 1)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t
+            dev = device_profile(cs.device_events(prof))
+            cs.emit(phase=f"trace_{arm}", traced_wall_s=wall,
+                    idle_share=1 - dev["device_busy_ms"] / (wall * 1e3),
+                    device_filled_batches=line["device_filled_batches"], **dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

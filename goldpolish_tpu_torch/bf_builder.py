@@ -20,7 +20,8 @@ FIFO handshakes, the result is returned in memory (and convertible to device
 words for the device scan).
 
 Port counterpart: goldpolish_tpu/bf_builder.py.  build_batch_device runs
-the sort-based device fill (ops/bloom_sort, kernel 5).  Left out: the
+the device fill (ops/bloom_sort, kernel 5: the JAX module's name, two
+passes of L2 atomics in place of its sort).  Left out: the
 round-3 scatter build `device_fill_bfs` (GPTPU_SCATTER_FILL raises; ROADMAP
 lists it under "Not to port"), and the JAX method's fallback to the host
 fill when the device fill fails: here a device failure raises.
@@ -186,7 +187,7 @@ class BFBuilder:
 
     def build_batch_device(self, target_ids: list[str],
                            device: str = "cuda") -> BatchBFs:
-        """Fast-mode device fill (sort-based, ops/bloom_sort) on `device`.
+        """Fast-mode device fill (ops/bloom_sort, kernel 5) on `device`.
 
         DEVIATION from the host fill (documented, like autoscale_bf): per-slot
         occurrence totals upper-bound conservative-update counts and

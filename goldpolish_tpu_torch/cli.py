@@ -1,10 +1,11 @@
 """goldpolish CLI of the PyTorch + CUDA port — flag-compatible with the
 reference driver.
 
-Port counterpart: goldpolish_tpu/cli.py, copied with these cuts:
---backend takes numpy or hybrid (the jax backend is not ported), --device
-picks where the hybrid scan and the --fill-overlap device fill run, and
---target (targeted mode) raises until
+Port counterpart: goldpolish_tpu/cli.py, copied with these changes:
+--backend takes hybrid (the default: the card) or numpy (the host path;
+the jax backend is not ported), --device picks where the hybrid scan and
+the --fill-overlap device fill run (cuda, the default, raises without
+CUDA; cpu is for tests), and --target (targeted mode) raises until
 pipeline/targeted.py is ported (ROADMAP.md queue 1).
 
 Usage mirrors `goldpolish <draft.fa> <reads.fa|fq> <out.fa>` with the
@@ -59,13 +60,14 @@ def build_parser() -> argparse.ArgumentParser:
     tg.add_argument("--softmask", action="store_true",
                     help="Targets from softmasked regions (with --target)")
     # framework additions
-    p.add_argument("--backend", choices=["numpy", "hybrid"], default="numpy",
-                   help="Editor compute backend (hybrid = CUDA dense scan + "
-                        "host walk)")
+    p.add_argument("--backend", choices=["numpy", "hybrid"], default="hybrid",
+                   help="Editor compute backend (default hybrid = the "
+                        "fused scan and eval on --device + host walk; "
+                        "numpy = the host path)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Where the hybrid scan and the --fill-overlap "
-                        "fill run (cpu = the plain torch versions, for "
-                        "tests)")
+                        "fill run (default cuda, which raises without CUDA; "
+                        "cpu = the plain torch versions, for tests)")
     p.add_argument("--checkpoint", default="",
                    help="Checkpoint manifest path for preemption-safe resume")
     p.add_argument("--no-sealer", action="store_true",

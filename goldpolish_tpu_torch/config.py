@@ -7,9 +7,9 @@ The reference scatters configuration across four layers — Python argparse
 flags and magic constants.  This dataclass is the single source of truth;
 the CLI populates it.
 
-Port counterpart: goldpolish_tpu/config.py, copied; adds `device`, where
-the hybrid backend's scan and the overlapped device fill run ("cuda", or
-"cpu" for the tests).
+Port counterpart: goldpolish_tpu/config.py, copied; the backend defaults
+to "hybrid" (the card), and `device` says where the hybrid backend's scan
+and the overlapped device fill run ("cuda", or "cpu" for the tests).
 """
 
 from __future__ import annotations
@@ -59,7 +59,9 @@ class PipelineConfig:
     bf_bytes: int = 512 * 1024
 
     # new-framework knobs (no reference equivalent)
-    backend: str = "numpy"  # "hybrid" = CUDA dense scan + host walk
+    # "hybrid" = the fused scan and eval on `device` + host walk (the
+    # default: the card); "numpy" = the host path
+    backend: str = "hybrid"
     # device of the hybrid scan and the fill_overlap fill: "cuda" raises
     # without CUDA (never a CPU fallback); "cpu" runs the plain torch
     # versions (tests)

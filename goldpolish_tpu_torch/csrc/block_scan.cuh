@@ -1,6 +1,6 @@
-// The block-wide exclusive prefix sum that kernel 4 (scan_eval.cu: site
-// heads, needing sites) and kernel 5 (bloom_sort.cu: run ids) both use to
-// compact in order without atomics.
+// The block-wide exclusive prefix sum that kernel 4 (scan_eval.cu) uses to
+// compact in order without atomics: a tile's heads, the tile counts, the
+// need bitmap's words.
 #pragma once
 
 #include <cuda_runtime.h>

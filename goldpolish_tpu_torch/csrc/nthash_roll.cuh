@@ -1,0 +1,101 @@
+// ntHash v1 on the device: the split rotation, the direct window hash from
+// kernel 2's XOR tables, the O(1) roll and the extra hashes.  Kernels 4
+// (scan_eval.cu) and 5 (bloom_sort.cu) include it.
+//
+//   fh(w)   = XOR_j TF[j][class(s[w+j])]    TF[j][c] = srol^(k-1-j)(seed_c)
+//   rh(w)   = XOR_j TR[j][s[w+j] & 7]       TR[j][c] = srol^j(seedTab[c])
+//   fh(w+1) = srol(fh(w)) ^ F[s[w+k]] ^ srol^k(F[s[w]])
+//   rh(w+1) = sror(rh(w) ^ srol^k(R[s[w+k]]) ^ R[s[w]])
+//
+// with F[c] = TF[k-1][class(c)] (ntHash's seedTab[c]) and R[c] = TR[0][c & 7]
+// (seedTab[c & 7]).  Rotation distributes over XOR, so the rolled and the
+// direct forms agree for every byte, whatever seed it carries (the tables
+// come from goldpolish_tpu_torch/ops/scan_conv.py:_xor_tables).
+#pragma once
+
+#include <cstdint>
+
+constexpr int kGpMaxK = 64;
+constexpr int kGpNoClass = 4;  // forward class of bytes without a seed
+
+__device__ __forceinline__ uint64_t gp_srol_n(uint64_t v, int n) {
+  const uint64_t m31 = (1ull << 31) - 1, m33 = (1ull << 33) - 1;
+  const int s31 = n % 31, s33 = n % 33;
+  uint64_t hi = v >> 33, lo = v & m33;
+  hi = ((hi << s31) | (hi >> (31 - s31))) & m31;
+  lo = ((lo << s33) | (lo >> (33 - s33))) & m33;
+  return (hi << 33) | lo;
+}
+
+__device__ __forceinline__ uint64_t gp_sror1(uint64_t v) {
+  const uint64_t m31 = (1ull << 31) - 1, m33 = (1ull << 33) - 1;
+  uint64_t hi = v >> 33, lo = v & m33;
+  hi = ((hi >> 1) | (hi << 30)) & m31;
+  lo = ((lo >> 1) | (lo << 32)) & m33;
+  return (hi << 33) | lo;
+}
+
+// hash i of a canonical base hash (nte64; kmul = k * MULTI_SEED)
+__device__ __forceinline__ uint64_t gp_nth_hash(uint64_t base, int i, uint64_t kmul) {
+  if (!i) return base;
+  const uint64_t t = base * ((uint64_t)i ^ kmul);
+  return t ^ (t >> 27);
+}
+
+// The direct-hash tables, staged in shared memory.
+struct GpWindowTables {
+  uint64_t tf[kGpMaxK * 5];  // class 4 (no seed) contributes 0
+  uint64_t tr[kGpMaxK * 8];
+  uint8_t cls[256];
+};
+
+// The per-byte roll seeds for one k, staged in shared memory.
+struct GpRollTables {
+  uint64_t f[256], r[256], fk[256], rk[256];  // F, R, srol^k(F), srol^k(R)
+};
+
+// Every thread of the block calls it; __syncthreads() before reading.
+__device__ __forceinline__ void gp_load_window_tables(GpWindowTables& t, int k,
+                                                      const uint64_t* __restrict__ tf,
+                                                      const uint64_t* __restrict__ tr,
+                                                      const uint8_t* __restrict__ fclass) {
+  for (int i = threadIdx.x; i < k * 5; i += blockDim.x) {
+    const int j = i / 5, c = i % 5;
+    t.tf[i] = c == kGpNoClass ? 0ull : tf[j * 4 + c];
+  }
+  for (int i = threadIdx.x; i < k * 8; i += blockDim.x) t.tr[i] = tr[i];
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) t.cls[i] = fclass[i];
+}
+
+// After the window tables are staged and synchronised; every thread of the
+// block calls it; __syncthreads() before reading.
+__device__ __forceinline__ void gp_load_roll_tables(GpRollTables& r, const GpWindowTables& t,
+                                                    int k) {
+  for (int c = threadIdx.x; c < 256; c += blockDim.x) {
+    const uint64_t f = t.tf[(k - 1) * 5 + t.cls[c]], rv = t.tr[c & 7];
+    r.f[c] = f;
+    r.r[c] = rv;
+    r.fk[c] = gp_srol_n(f, k);
+    r.rk[c] = gp_srol_n(rv, k);
+  }
+}
+
+// (fh, rh) of the window whose byte j is byte(j), j < k.
+template <class Byte>
+__device__ __forceinline__ void gp_window_hash(const GpWindowTables& t, int k, Byte byte,
+                                               uint64_t& fh, uint64_t& rh) {
+  fh = 0;
+  rh = 0;
+  for (int j = 0; j < k; ++j) {
+    const uint8_t c = byte(j);
+    fh ^= t.tf[j * 5 + t.cls[c]];
+    rh ^= t.tr[j * 8 + (c & 7)];
+  }
+}
+
+// One window to the right: c_out leaves at the left, c_in enters at the right.
+__device__ __forceinline__ void gp_roll(const GpRollTables& r, uint64_t& fh, uint64_t& rh,
+                                        uint8_t c_out, uint8_t c_in) {
+  fh = gp_srol_n(fh, 1) ^ r.f[c_in] ^ r.fk[c_out];
+  rh = gp_sror1(rh ^ r.rk[c_in] ^ r.r[c_out]);
+}

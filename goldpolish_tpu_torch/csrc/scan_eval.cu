@@ -5,68 +5,74 @@
 // (:235-522), one XLA program whose every Bloom test rides the Pallas probe
 // P3 (`_probe_lo32_mxu_i8`, bloom_pallas.py:331) on a TPU.  The plain torch
 // version, goldpolish_tpu_torch/ops/scan_eval.py:scan_eval_reference,
-// follows the same steps and is what the tests hold this chain against.
+// follows the XLA program step by step and is what the tests hold these
+// kernels against.
 //
-// The chain (all on one stream, no host synchronisation; n_sites stays on
-// the device and every later stage runs at the fixed shapes S and SI):
-//   se_scan        per window: fh, rh (kernel 2's XOR tables), presence
-//                  (h probes), clean (all k bytes accepted); packed bits
-//   se_hot         per window: clean & miss & eligible & cm >= thr_missing
-//   se_head_count  per window: head = hot & no hot in [w-k+1, w-1];
-//                  per-block head counts
-//   se_block_scan  one block: exclusive scan of the block counts, n_sites,
-//                  pad site[] with -1
-//   se_head_write  per window: site[offset + rank] = r * nw + w while < S
-//                  (so site holds the S smallest heads, ascending)
-//   se_sites       one warp per site slot: lanes 0-3 the substitution gate
-//                  and supports (XOR deltas on the scan's fh/rh), lanes 4..
-//                  the MD deletion chains (changelast, k-2 rolls); lane 0
-//                  the insertion lane and the needing flag
-//   se_need_compact one block: the first SI needing sites, in site order
-//   se_ins         one block per needing slot: the MI per-length reference
-//                  chains, the h1 prescreen of all C x T combo points, and
-//                  exact full-h probes of the first 48 passing combos
-// Gathers clamp to the row exactly as the JAX program's do, so pad sites
-// (site -1 evaluates window 0) and row tails give the same bytes.
+// Four launches on one stream (plus the memsets of two outputs), no host
+// synchronisation; n_sites stays on the device:
+//   se_tile     one block per row tile of kTile windows: stages the tile's
+//               bytes with a 2k-1 halo on each side, rolls the window hashes
+//               (nthash_roll.cuh), probes, and keeps presence, cleanness
+//               (all k bytes accepted) and hot flags in shared memory; writes
+//               the packed presence bits, the tile's head count and its heads
+//               (hot, no hot in the k-1 windows before), ascending, into a
+//               per-tile staging area
+//   se_compact  one block: an exclusive scan of the tile counts gives
+//               n_sites and puts the S smallest heads, ascending, into site
+//               (-1 past them); clears the need bitmap
+//   se_sites    one warp per live slot (< min(n_sites, S), a grid-stride
+//               loop), plus one warp for global window 0 when a slot is a
+//               pad (site -1 evaluates window 0); the warp stages the site's
+//               bytes, recomputes the window hashes of the substitutions, and
+//               spreads the substitution and deletion windows over its lanes;
+//               writes gate, supports and the insertion lane, and sets the
+//               slot's need bit
+//   se_ins      copies the pad row into the pad slots, then one block per
+//               needing slot (the first SI in site order, found in the need
+//               bitmap): the MI x T reference points, each hashed directly
+//               from the staged bytes, the h1 prescreen of every combo with
+//               an early exit once cnt + remaining < thr_edit (a certain
+//               fail), and exact full-h probes of the first 48 survivors,
+//               one (survivor, point) pair per thread.
+// Every window hash is the direct or rolled ntHash of the bytes the XLA
+// program's chains arrive at (a changelast and its rolls are XORs, so the
+// direct hash of the edited bytes is the chain's value); row edges clamp
+// exactly as the XLA program's gathers do.  The per-call scratch is the
+// tile staging (ceil(kTile / k) heads per tile) and an S-bit need bitmap,
+// no per-window array.
 //
-// What bounds it on the H100: dependent random L2 loads into the filter
-// (4 MiB per k on bulk's path, L2-resident).  Per [4, 2^18 + 31] call at
-// k = 32 that is 1 M windows x up to h bit probes for the scan, then up to
-// 4096 x 4 x 12 substitution and 4096 x 5 x 11 deletion windows of h bit
-// probes each, and for up to 1024 needing sites 1,024 x 341 x 11 = 3.8 M
-// h1 prescreen probes plus up to 1,024 x 48 x 11 x h = 2.2 M exact bit
-// probes (h = 4); the deletion and reference chains add serial rolls (k
-// per chain).  HBM traffic is small: the call's scratch fh/rh (16 MiB) and
-// ~1.6 MB of tables out.
-//
-// What the simple design leaves for later: each site's bytes are read
-// from global memory (L1/L2), not staged in shared memory; the prescreen
-// runs one thread per combo over all T points with no early exit, where a
-// warp-cooperative prescreen could stop a combo once its bound fails; the
-// head search re-reads k-1 hot flags per window instead of a halo scan.
+// What bounds it on the H100: the bytes it must move are the codes (1 MB
+// per [4, 2^18 + 31] call), the filter (4 MiB on bulk's path) and ~1.6 MB
+// of tables out, ~2 us.  The real limit is the rate of random 4-byte L2
+// requests into the filter: at k = 32, 1 M windows x up to h bit probes
+// for the scan, up to S x 4 x 12 substitution and S x MD x 11 deletion
+// windows of h probes each (live slots only), and per needing site 341 x T
+// h1 probes (fewer with the early exit) plus up to 48 x T x h exact ones.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 #include "block_scan.cuh"
 #include "bloom_probe.cuh"
+#include "nthash_roll.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;   // windows per block in the per-window stages
-constexpr int kMaxK = 64;
-constexpr int kNoClass = 4;     // forward class of bytes without a seed
-constexpr int kSurvivors = 48;  // T_SURVIVORS of ops/scan_eval.py
+constexpr int kTile = 2048;        // windows per se_tile block
+constexpr int kTileThreads = 256;
+constexpr int kHeadRun = kTile / kTileThreads;  // windows per thread in the head pass
+constexpr int kSurvivors = 48;     // T_SURVIVORS of ops/scan_eval.py
 constexpr int kMaxC = 341;
 constexpr int kMaxT = 64;
 constexpr int kMaxMI = 5;
 constexpr int kMaxMD = 7;
-constexpr int kScanBlock = 1024;
-constexpr int kSiteWarps = 4;   // site slots per block in se_sites
+constexpr int kCompactThreads = 1024;
+constexpr int kSiteWarps = 8;      // warps per se_sites block
+constexpr int kMaxSiteBlocks = 1056;
 constexpr int kInsThreads = 128;
+constexpr int kSiteBytes = 2 * kGpMaxK + kMaxMD + 2;  // s[w .. w + 2k + 8]
+constexpr int kPadRow = 16;        // gate[4] | sub_sup[4] | del_sup[MD] | ins_lane @15
 constexpr unsigned kFull = 0xffffffffu;
-constexpr uint64_t kMask31 = (1ull << 31) - 1;
-constexpr uint64_t kMask33 = (1ull << 33) - 1;
 
 struct Probe {
   const uint32_t* words;
@@ -84,8 +90,6 @@ struct Shape {
 
 // The constant tables (ops/scan_eval.py:_Consts gives the layout).
 struct Consts {
-  const uint64_t* fseed;     // [256]
-  const uint64_t* rseed;     // [256]
   const uint64_t* dfs;       // [256 * 4]
   const uint64_t* drs;       // [256 * 4]
   const uint64_t* dfi;       // [C * T]
@@ -95,342 +99,360 @@ struct Consts {
   const uint8_t* combo_len;  // [C]
 };
 
-__device__ __forceinline__ uint64_t srol_n(uint64_t v, int n) {
-  const int s31 = n % 31, s33 = n % 33;
-  uint64_t hi = v >> 33, lo = v & kMask33;
-  hi = ((hi << s31) | (hi >> (31 - s31))) & kMask31;
-  lo = ((lo << s33) | (lo >> (33 - s33))) & kMask33;
-  return (hi << 33) | lo;
-}
-
-__device__ __forceinline__ uint64_t sror1(uint64_t v) {
-  uint64_t hi = v >> 33, lo = v & kMask33;
-  hi = ((hi >> 1) | (hi << 30)) & kMask31;
-  lo = ((lo >> 1) | (lo << 32)) & kMask33;
-  return (hi << 33) | lo;
-}
-
-// ntc64_changelast and one roll with gathered seeds (scan_eval.py:129-150);
-// k <= 64 < 1023, so srol^k needs no reduction.
-__device__ __forceinline__ void changelast(uint64_t& fh, uint64_t& rh, int k,
-                                           uint64_t f_out, uint64_t f_in,
-                                           uint64_t r_out, uint64_t r_in) {
-  fh = fh ^ f_out ^ f_in;
-  rh = sror1(srol_n(rh, 1) ^ srol_n(r_out ^ r_in, k));
-}
-
-__device__ __forceinline__ void roll(uint64_t& fh, uint64_t& rh, int k,
-                                     uint64_t f_out, uint64_t f_in,
-                                     uint64_t r_out, uint64_t r_in) {
-  fh = srol_n(fh, 1) ^ f_in ^ srol_n(f_out, k);
-  rh = sror1(rh ^ srol_n(r_in, k) ^ r_out);
+__device__ __forceinline__ uint64_t probe_index(const Probe& p, uint64_t hv) {
+  return p.pow2 ? (hv & (p.bits - 1)) : (hv % p.bits);
 }
 
 __device__ __forceinline__ bool probe_bit(const Probe& p, uint64_t hv) {
-  return gp_bloom_test(p.words, p.pow2 ? (hv & (p.bits - 1)) : (hv % p.bits));
+  return gp_bloom_test(p.words, probe_index(p, hv));
 }
 
+// all h bits, stopping at the first miss
 __device__ __forceinline__ bool probe_full(const Probe& p, uint64_t base) {
-  for (int i = 0; i < p.h; ++i) {
-    uint64_t hv = base;
-    if (i) {
-      const uint64_t t = base * ((uint64_t)i ^ p.kmul);
-      hv = t ^ (t >> 27);
-    }
-    if (!probe_bit(p, hv)) return false;
-  }
+  for (int i = 0; i < p.h; ++i)
+    if (!probe_bit(p, gp_nth_hash(base, i, p.kmul))) return false;
   return true;
-}
-
-__device__ __forceinline__ int64_t clamp64(int64_t x, int64_t lo, int64_t hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
 }
 
 __device__ __forceinline__ int upper(int c) {
   return (c >= 97 && c <= 122) ? c - 32 : c;
 }
 
-// flags bit 0: present; bit 1: clean (all k bytes of the window accepted)
-__global__ void se_scan(Probe pb, Shape sh, const uint8_t* __restrict__ codes,
-                        const uint64_t* __restrict__ tf,
-                        const uint64_t* __restrict__ tr,
-                        const uint8_t* __restrict__ fclass,
-                        const uint8_t* __restrict__ accepted,
-                        uint64_t* __restrict__ fh_out, uint64_t* __restrict__ rh_out,
-                        uint8_t* __restrict__ flags, uint8_t* __restrict__ packed,
-                        int64_t nbytes) {
-  __shared__ uint64_t s_tf[kMaxK * 5];
-  __shared__ uint64_t s_tr[kMaxK * 8];
-  __shared__ uint8_t s_cls[256];
+// ---- 1. the tile pass --------------------------------------------------------
+
+__global__ void __launch_bounds__(kTileThreads)
+se_tile(Probe pb, Shape sh, const uint8_t* __restrict__ codes,
+        const uint64_t* __restrict__ tf, const uint64_t* __restrict__ tr,
+        const uint8_t* __restrict__ fclass, const uint8_t* __restrict__ accepted,
+        uint8_t* __restrict__ packed, int64_t nbytes, int32_t* __restrict__ tile_cnt,
+        int32_t* __restrict__ tile_heads, int cap) {
+  __shared__ GpWindowTables s_t;
+  __shared__ GpRollTables s_r;
   __shared__ uint8_t s_acc[256];
-  __shared__ uint8_t s_codes[kThreads + kMaxK - 1];
+  __shared__ uint8_t s_codes[kTile + 3 * kGpMaxK];
+  __shared__ uint8_t s_pres[kTile + 2 * kGpMaxK];
+  __shared__ uint8_t s_clean[kTile + 2 * kGpMaxK];
+  __shared__ uint8_t s_hot[kTile + kGpMaxK];
 
   const int k = sh.k;
-  const int64_t row = blockIdx.y;
-  const int64_t w0 = (int64_t)blockIdx.x * kThreads;
-  for (int i = threadIdx.x; i < k * 5; i += blockDim.x) {
-    const int j = i / 5, c = i % 5;
-    s_tf[i] = c == kNoClass ? 0ull : tf[j * 4 + c];
-  }
-  for (int i = threadIdx.x; i < k * 8; i += blockDim.x) s_tr[i] = tr[i];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    s_cls[i] = fclass[i];
-    s_acc[i] = accepted[i];
-  }
+  const int64_t row = blockIdx.y, w0 = (int64_t)blockIdx.x * kTile;
+  // extended windows x = xs + i, i < E: the tile's, k-1 before, k after
+  const int64_t xs = w0 - (k - 1);
+  const int E = kTile + 2 * k - 1;
+  gp_load_window_tables(s_t, k, tf, tr, fclass);
+  for (int i = threadIdx.x; i < 256; i += kTileThreads) s_acc[i] = accepted[i];
   const uint8_t* src = codes + row * sh.L;
-  for (int i = threadIdx.x; i < kThreads + k - 1; i += blockDim.x) {
-    const int64_t p = w0 + i;
-    s_codes[i] = p < sh.L ? src[p] : 0;
+  for (int i = threadIdx.x; i < E + k - 1; i += kTileThreads) {
+    const int64_t p = xs + i;
+    s_codes[i] = (p >= 0 && p < sh.L) ? src[p] : 0;
+  }
+  __syncthreads();
+  gp_load_roll_tables(s_r, s_t, k);
+  __syncthreads();
+
+  // presence and cleanness: each thread rolls through a run of windows
+  const int run = (E + kTileThreads - 1) / kTileThreads;
+  const int i0 = threadIdx.x * run;
+  if (i0 < E) {
+    const uint8_t* s = s_codes + i0;
+    uint64_t fh, rh;
+    gp_window_hash(s_t, k, [s](int j) { return s[j]; }, fh, rh);
+    int bad = 0;
+    for (int j = 0; j < k; ++j) bad += !s_acc[s[j]];
+    const int m = E - i0 < run ? E - i0 : run;
+    for (int i = 0;;) {
+      const int64_t x = xs + i0 + i;
+      const bool in = x >= 0 && x < sh.nw;
+      s_pres[i0 + i] = in && probe_full(pb, fh + rh);
+      s_clean[i0 + i] = in && bad == 0;
+      if (++i == m) break;
+      const uint8_t co = s[i - 1], ci = s[i - 1 + k];
+      gp_roll(s_r, fh, rh, co, ci);
+      bad += (int)!s_acc[ci] - (int)!s_acc[co];
+    }
   }
   __syncthreads();
 
-  const int64_t w = w0 + threadIdx.x;
-  bool present = false;
-  if (w < sh.nw) {
-    uint64_t fh = 0, rh = 0;
-    bool clean = true;
-    for (int j = 0; j < k; ++j) {
-      const uint8_t c = s_codes[threadIdx.x + j];
-      fh ^= s_tf[j * 5 + s_cls[c]];
-      rh ^= s_tr[j * 8 + (c & 7)];
-      clean &= s_acc[c] != 0;
+  // packed presence of the tile's own windows: window 8q + r is bit r of
+  // byte q (0 past nw)
+  for (int j = threadIdx.x; j < kTile / 8; j += kTileThreads) {
+    const int64_t byte = w0 / 8 + j;
+    if (byte < nbytes) {
+      unsigned b = 0;
+      for (int q = 0; q < 8; ++q) b |= (unsigned)s_pres[k - 1 + 8 * j + q] << q;
+      packed[row * nbytes + byte] = (uint8_t)b;
     }
-    present = probe_full(pb, fh + rh);
-    const int64_t g = row * sh.nw + w;
-    fh_out[g] = fh;
-    rh_out[g] = rh;
-    flags[g] = (uint8_t)(present | (clean << 1));
   }
-  // 32 consecutive windows -> 4 bytes; window 8q + r is bit r of byte q
-  const unsigned ballot = __ballot_sync(kFull, present);
-  const int lane = threadIdx.x & 31;
-  if (lane < 4) {
-    const int64_t byte = ((w0 + (threadIdx.x & ~31)) >> 3) + lane;
-    if (byte < nbytes) packed[row * nbytes + byte] = (uint8_t)(ballot >> (8 * lane));
-  }
-}
 
-__global__ void se_hot(Shape sh, const uint8_t* __restrict__ flags,
-                       uint8_t* __restrict__ hot) {
-  const int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (w >= sh.nw) return;
-  const uint8_t* f = flags + blockIdx.y * sh.nw;
-  const uint8_t fw = f[w];
-  bool h = false;
-  // eligible: w <= L - 2k and window w + k clean (w + k < nw then)
-  if ((fw & 2) && !(fw & 1) && w <= sh.L - 2 * sh.k && (f[w + sh.k] & 2)) {
-    int cm = 0;  // misses at windows w+1, w+1+jump, ... (inside the row)
-    for (int kk = 0; kk < sh.k; kk += sh.jump) {
-      const int64_t x = w + kk + 1;
-      if (x < sh.nw) cm += !(f[x] & 1);
+  // hot: clean & miss & eligible (x <= L - 2k and window x + k clean) &
+  // misses at x+1, x+1+jump, ... (inside the row) >= thr_missing
+  for (int i = threadIdx.x; i < kTile + k - 1; i += kTileThreads) {
+    const int64_t x = xs + i;
+    bool h = false;
+    if (x >= 0 && x < sh.nw && s_clean[i] && !s_pres[i] && x <= sh.L - 2 * k &&
+        s_clean[i + k]) {
+      int cm = 0;
+      for (int kk = 0; kk < k; kk += sh.jump)
+        if (x + kk + 1 < sh.nw) cm += !s_pres[i + kk + 1];
+      h = (float)cm >= sh.thr_missing;
     }
-    h = (float)cm >= sh.thr_missing;
+    s_hot[i] = h;
   }
-  hot[blockIdx.y * sh.nw + w] = h;
+  __syncthreads();
+
+  // heads of the tile, ascending: thread t owns windows w0 + 8t .. + 7
+  const int c0 = threadIdx.x * kHeadRun;
+  unsigned mine = 0;
+  for (int q = 0; q < kHeadRun; ++q) {
+    const int i = c0 + q + k - 1;
+    if (w0 + c0 + q >= sh.nw || !s_hot[i]) continue;
+    bool head = true;
+    for (int d = 1; d < k && head; ++d) head = !s_hot[i - d];
+    mine |= (unsigned)head << q;
+  }
+  int total;
+  const int off = gp_block_exclusive_scan(__popc(mine), &total);
+  const int64_t tile = row * gridDim.x + blockIdx.x;
+  int32_t* out = tile_heads + tile * cap + off;
+  for (int q = 0; q < kHeadRun; ++q)
+    if ((mine >> q) & 1) *out++ = (int32_t)(row * sh.nw + w0 + c0 + q);
+  if (threadIdx.x == 0) tile_cnt[tile] = total;
 }
 
-__device__ __forceinline__ bool is_head(const uint8_t* hot_row, int64_t w, int k) {
-  if (!hot_row[w]) return false;
-  for (int64_t x = w - k + 1 < 0 ? 0 : w - k + 1; x < w; ++x)
-    if (hot_row[x]) return false;
-  return true;
-}
+// ---- 2. compaction -----------------------------------------------------------
 
-__global__ void se_head_count(Shape sh, const uint8_t* __restrict__ hot,
-                              int32_t* __restrict__ blk_cnt) {
-  const int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool hd = w < sh.nw && is_head(hot + blockIdx.y * sh.nw, w, sh.k);
-  const int n = __syncthreads_count(hd);
-  if (threadIdx.x == 0) blk_cnt[(int64_t)blockIdx.y * gridDim.x + blockIdx.x] = n;
-}
-
-__global__ void se_block_scan(int64_t nblk, const int32_t* __restrict__ blk_cnt,
-                              int32_t* __restrict__ blk_off,
-                              int32_t* __restrict__ n_sites,
-                              int32_t* __restrict__ site, int S) {
+__global__ void __launch_bounds__(kCompactThreads)
+se_compact(int64_t ntiles, const int32_t* __restrict__ tile_cnt,
+           const int32_t* __restrict__ tile_heads, int cap, int32_t* __restrict__ tile_off,
+           int32_t* __restrict__ n_sites, int32_t* __restrict__ site, int S,
+           uint32_t* __restrict__ need_bits) {
   int carry = 0;
-  for (int64_t base = 0; base < nblk; base += blockDim.x) {
+  for (int64_t base = 0; base < ntiles; base += kCompactThreads) {
     const int64_t i = base + threadIdx.x;
     int total;
-    const int e = gp_block_exclusive_scan(i < nblk ? blk_cnt[i] : 0, &total);
-    if (i < nblk) blk_off[i] = carry + e;
+    const int e = gp_block_exclusive_scan(i < ntiles ? tile_cnt[i] : 0, &total);
+    if (i < ntiles) tile_off[i] = carry + e;
     carry += total;
   }
   if (threadIdx.x == 0) *n_sites = carry;
-  for (int i = (carry < S ? carry : S) + threadIdx.x; i < S; i += blockDim.x)
+  __syncthreads();
+  const int lane = threadIdx.x & 31, nwarps = kCompactThreads / 32;
+  for (int64_t t = threadIdx.x >> 5; t < ntiles; t += nwarps) {
+    const int off = tile_off[t];
+    if (off >= S) continue;
+    const int n = tile_cnt[t] < S - off ? tile_cnt[t] : S - off;
+    for (int j = lane; j < n; j += 32) site[off + j] = tile_heads[t * cap + j];
+  }
+  for (int i = (carry < S ? carry : S) + threadIdx.x; i < S; i += kCompactThreads)
     site[i] = -1;
+  for (int i = threadIdx.x; i < (S + 31) / 32; i += kCompactThreads) need_bits[i] = 0;
 }
 
-__global__ void se_head_write(Shape sh, const uint8_t* __restrict__ hot,
-                              const int32_t* __restrict__ blk_off,
-                              int32_t* __restrict__ site) {
-  __shared__ int s_wcnt[kThreads / 32];
-  const int64_t w = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool hd = w < sh.nw && is_head(hot + blockIdx.y * sh.nw, w, sh.k);
-  const unsigned b = __ballot_sync(kFull, hd);
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  if (lane == 0) s_wcnt[wid] = __popc(b);
-  __syncthreads();
-  if (!hd) return;
-  int off = blk_off[(int64_t)blockIdx.y * gridDim.x + blockIdx.x];
-  for (int i = 0; i < wid; ++i) off += s_wcnt[i];
-  off += __popc(b & ((1u << lane) - 1));
-  if (off < sh.S) site[off] = (int32_t)(blockIdx.y * sh.nw + w);
-}
+// ---- 3. the site slots -------------------------------------------------------
 
 // A site slot's window: pad slots (site -1) evaluate global window 0.
 struct SiteAt {
   const uint8_t* row;
-  int64_t w, p, g;  // window (clamped), tail position, r * nw + w
-  int draft;        // upper-cased draft byte at p
+  int64_t w;  // window in the row (< nw: the JAX w_safe clamp holds already)
+  int draft;  // upper-cased draft byte at p = w + k - 1
 };
 
 __device__ __forceinline__ SiteAt site_at(const Shape& sh, const uint8_t* codes,
                                           int32_t st) {
   SiteAt a;
   const int64_t sidx = st < 0 ? 0 : st;
-  const int64_t r = sidx / sh.nw;
-  a.w = sidx % sh.nw;  // < nw: the JAX w_safe clamp holds already
-  a.g = r * sh.nw + a.w;
-  a.p = clamp64(a.w + sh.k - 1, 0, sh.L - 1);
-  a.row = codes + r * sh.L;
-  a.draft = upper(a.row[a.p]);
+  a.w = sidx % sh.nw;
+  a.row = codes + (sidx / sh.nw) * sh.L;
+  a.draft = upper(a.row[a.w + sh.k - 1]);
   return a;
 }
 
-__global__ void se_sites(Probe pb, Shape sh, Consts cs,
-                         const uint8_t* __restrict__ codes,
-                         const uint64_t* __restrict__ fh,
-                         const uint64_t* __restrict__ rh,
-                         const int32_t* __restrict__ site,
-                         uint8_t* __restrict__ gate, int8_t* __restrict__ sub_sup,
-                         int8_t* __restrict__ del_sup, int8_t* __restrict__ ins_lane,
-                         uint8_t* __restrict__ need_flag) {
-  const int s = blockIdx.x * kSiteWarps + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (s >= sh.S) return;  // warp-uniform
-  const int32_t st = site[s];
-  const SiteAt a = site_at(sh, codes, st);
-  const int k = sh.k;
-  const int64_t rowg = a.g - a.w;  // r * nw
-  bool g = false;
-  int cnt = 0;
-  if (lane < 4) {
-    // substitutions: window j of candidate `lane` by XOR delta
-    const uint64_t df = cs.dfs[a.draft * 4 + lane], dr = cs.drs[a.draft * 4 + lane];
-    // j = 0 (the gate), then j = kk + 1 for kk = 0, jump, 2 jump, ... < k
-    for (int i = -1; i * sh.jump < k; ++i) {
-      const int j = i < 0 ? 0 : i * sh.jump + 1;
-      const int64_t wj = a.w + j < sh.nw - 1 ? a.w + j : sh.nw - 1;
-      const uint64_t f = fh[rowg + wj] ^ srol_n(df, j % 1023);
-      const uint64_t r = rh[rowg + wj] ^ srol_n(dr, ((k - 1 - j) % 1023 + 1023) % 1023);
-      const bool pres = probe_full(pb, f + r);
-      if (j == 0) g = pres; else cnt += pres;
-    }
-    gate[s * 4 + lane] = g;
-    sub_sup[s * 4 + lane] = (int8_t)cnt;
-  } else if (lane < 4 + sh.MD) {
-    // deletion of d bases: changelast(draft -> s[p+d]), then k-2 rolls
-    const int d = lane - 3;
-    const int nxt = a.row[clamp64(a.p + d, 0, sh.L - 1)];
-    uint64_t f = fh[a.g], r = rh[a.g];
-    changelast(f, r, k, cs.fseed[a.draft], cs.fseed[nxt], cs.rseed[a.draft],
-               cs.rseed[nxt]);
-    int c = probe_full(pb, f + r);
-    for (int kk = 1; kk < k - 1; ++kk) {
-      const int co = a.row[clamp64(a.w + kk - 1, 0, sh.L - 1)];
-      const int ci = a.row[clamp64(a.p + d + kk, 0, sh.L - 1)];
-      roll(f, r, k, cs.fseed[co], cs.fseed[ci], cs.rseed[co], cs.rseed[ci]);
-      if (kk % sh.jump == 0) c += probe_full(pb, f + r);
-    }
-    del_sup[(int64_t)s * sh.MD + d - 1] = (int8_t)c;
+// sb[j] = s[min(w + j, L - 1)] for j < 2k + 9: every byte a site's windows
+// read (the XLA program's gathers clamp to the row's last byte)
+__device__ __forceinline__ void stage_site(const Shape& sh, const SiteAt& a, uint8_t* sb,
+                                           int tid, int nthreads) {
+  for (int j = tid; j < 2 * sh.k + kMaxMD + 2; j += nthreads) {
+    const int64_t p = a.w + j;
+    sb[j] = a.row[p < sh.L ? p : sh.L - 1];
   }
-  const unsigned gates = __ballot_sync(kFull, lane < 4 && g);
-  int sup[4];
-  for (int c = 0; c < 4; ++c) sup[c] = __shfl_sync(kFull, cnt, c);
-  if (lane == 0) {
-    // the insertion lane: the first gated candidate whose sub was not
-    // accepted, with no accepted sub at an earlier lane (cand 0 never)
-    int lane_out = -1;
-    bool acc_before = false;
-    for (int c = 0; c < 4; ++c) {
-      const bool gt = (gates >> c) & 1;
-      const bool acc = gt && (float)sup[c] >= sh.thr_edit;
-      if (gt && !acc && !acc_before && cs.sub_cand[a.draft * 4 + c] != 0) {
-        lane_out = c;
-        break;
+}
+
+__global__ void __launch_bounds__(kSiteWarps * 32)
+se_sites(Probe pb, Shape sh, Consts cs, const uint8_t* __restrict__ codes,
+         const uint64_t* __restrict__ tf, const uint64_t* __restrict__ tr,
+         const uint8_t* __restrict__ fclass, const int32_t* __restrict__ n_sites,
+         const int32_t* __restrict__ site, uint8_t* __restrict__ gate,
+         int8_t* __restrict__ sub_sup, int8_t* __restrict__ del_sup,
+         int8_t* __restrict__ ins_lane, uint32_t* __restrict__ need_bits,
+         uint8_t* __restrict__ pad_row) {
+  __shared__ GpWindowTables s_t;
+  __shared__ uint8_t s_sb[kSiteWarps][kSiteBytes];
+  __shared__ int s_cnt[kSiteWarps][8 + kMaxMD];  // gate[4] | sub[4] | del[MD]
+
+  const int nlive = *n_sites < sh.S ? *n_sites : sh.S;
+  const int n_items = nlive + (nlive < sh.S);  // the pad row last
+  if ((int64_t)blockIdx.x * kSiteWarps >= n_items) return;  // block-uniform
+  gp_load_window_tables(s_t, sh.k, tf, tr, fclass);
+  __syncthreads();
+
+  const int k = sh.k, lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  uint8_t* sb = s_sb[wid];
+  int* cnt = s_cnt[wid];
+  const int nj = (k + sh.jump - 1) / sh.jump;             // substitution windows j > 0
+  const int nd = 1 + (k >= 2 ? (k - 2) / sh.jump : 0);    // deletion windows per d
+  const int n_sub = 4 * (nj + 1), n_all = n_sub + sh.MD * nd;
+  for (int item = blockIdx.x * kSiteWarps + wid; item < n_items;
+       item += gridDim.x * kSiteWarps) {
+    const int32_t st = item < nlive ? site[item] : -1;
+    const SiteAt a = site_at(sh, codes, st);
+    stage_site(sh, a, sb, lane, 32);
+    if (lane < 8 + kMaxMD) cnt[lane] = 0;
+    __syncwarp();
+    for (int it = lane; it < n_all; it += 32) {
+      uint64_t f, r;
+      if (it < n_sub) {
+        // substitution of candidate c at p, seen from window j: the scan
+        // hash of window min(w + j, nw - 1) XOR the candidate's delta
+        const int c = it & 3, ji = it >> 2;
+        const int j = ji ? (ji - 1) * sh.jump + 1 : 0;
+        const int o = (int)((a.w + j < sh.nw - 1 ? a.w + j : sh.nw - 1) - a.w);
+        gp_window_hash(s_t, k, [sb, o](int q) { return sb[o + q]; }, f, r);
+        f ^= gp_srol_n(cs.dfs[a.draft * 4 + c], j % 1023);
+        r ^= gp_srol_n(cs.drs[a.draft * 4 + c], ((k - 1 - j) % 1023 + 1023) % 1023);
+        const bool pres = probe_full(pb, f + r);
+        if (ji) atomicAdd(cnt + 4 + c, (int)pres);
+        else cnt[c] = pres;
+      } else {
+        // deletion of d bases at p, the window kk rolls on: bytes before p
+        // as they are, then s[p + d ..]
+        const int d = 1 + (it - n_sub) / nd, si = (it - n_sub) % nd;
+        const int kk = si * sh.jump;
+        gp_window_hash(s_t, k, [sb, kk, d, k](int q) {
+          return kk + q < k - 1 ? sb[kk + q] : sb[kk + q + d];
+        }, f, r);
+        atomicAdd(cnt + 8 + d - 1, (int)probe_full(pb, f + r));
       }
-      acc_before |= acc;
     }
-    ins_lane[s] = (int8_t)lane_out;
-    need_flag[s] = lane_out >= 0 && st >= 0;
+    __syncwarp();
+    if (lane == 0) {
+      // the insertion lane: the first gated candidate whose sub was not
+      // accepted, with no accepted sub at an earlier lane (cand 0 never)
+      int lane_out = -1;
+      bool acc_before = false;
+      for (int c = 0; c < 4; ++c) {
+        const bool gt = cnt[c] != 0;
+        const bool acc = gt && (float)cnt[4 + c] >= sh.thr_edit;
+        if (gt && !acc && !acc_before && cs.sub_cand[a.draft * 4 + c] != 0) {
+          lane_out = c;
+          break;
+        }
+        acc_before |= acc;
+      }
+      if (item < nlive) {
+        ins_lane[item] = (int8_t)lane_out;
+        if (lane_out >= 0) atomicOr(need_bits + (item >> 5), 1u << (item & 31));
+      } else {
+        pad_row[15] = (uint8_t)lane_out;
+      }
+    }
+    if (lane < 4 + sh.MD + 4) {
+      const uint8_t v = (uint8_t)cnt[lane];
+      uint8_t* dst = item >= nlive ? pad_row + lane
+                     : lane < 4 ? gate + (int64_t)item * 4 + lane
+                     : lane < 8 ? (uint8_t*)sub_sup + (int64_t)item * 4 + lane - 4
+                                : (uint8_t*)del_sup + (int64_t)item * sh.MD + lane - 8;
+      *dst = v;
+    }
+    __syncwarp();
   }
 }
 
-__global__ void se_need_compact(int S, int SI, const uint8_t* __restrict__ need_flag,
-                                int32_t* __restrict__ need_sel,
-                                int32_t* __restrict__ n_need) {
-  int carry = 0;
-  for (int base = 0; base < S; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int v = i < S && need_flag[i];
-    int total;
-    const int pos = carry + gp_block_exclusive_scan(v, &total);
-    if (v && pos < SI) need_sel[pos] = i;
-    carry += total;
-  }
-  if (threadIdx.x == 0) *n_need = carry < SI ? carry : SI;
-}
+// ---- 4. insertions -----------------------------------------------------------
 
-__global__ void se_ins(Probe pb, Shape sh, Consts cs, const uint8_t* __restrict__ codes,
-                       const uint64_t* __restrict__ fh, const uint64_t* __restrict__ rh,
-                       const int32_t* __restrict__ site,
-                       const int8_t* __restrict__ ins_lane,
-                       const int32_t* __restrict__ need_sel,
-                       const int32_t* __restrict__ n_need,
-                       uint8_t* __restrict__ ins_ok, int8_t* __restrict__ ins_sup) {
+__global__ void __launch_bounds__(kInsThreads)
+se_ins(Probe pb, Shape sh, Consts cs, const uint8_t* __restrict__ codes,
+       const uint64_t* __restrict__ tf, const uint64_t* __restrict__ tr,
+       const uint8_t* __restrict__ fclass, const int32_t* __restrict__ n_sites,
+       const int32_t* __restrict__ site, const uint32_t* __restrict__ need_bits,
+       const uint8_t* __restrict__ pad_row, uint8_t* __restrict__ gate,
+       int8_t* __restrict__ sub_sup, int8_t* __restrict__ del_sup,
+       int8_t* __restrict__ ins_lane, uint8_t* __restrict__ ins_ok,
+       int8_t* __restrict__ ins_sup) {
+  __shared__ GpWindowTables s_t;
+  __shared__ uint8_t s_sb[kSiteBytes];
   __shared__ uint64_t s_ref_f[kMaxMI * kMaxT];
   __shared__ uint64_t s_ref_r[kMaxMI * kMaxT];
   __shared__ uint8_t s_pass[kMaxC];
-  __shared__ int s_surv[kSurvivors];
-  __shared__ int s_nsurv;
-  if ((int)blockIdx.x >= *n_need) return;  // block-uniform
-  const int s = need_sel[blockIdx.x];
-  const SiteAt a = site_at(sh, codes, site[s]);
-  const int k = sh.k, T = sh.T, C = sh.C;
-  const uint64_t fd = cs.fseed[a.draft], rd = cs.rseed[a.draft];
-  if ((int)threadIdx.x < sh.MI) {
-    // reference chain of length group l: combo = index char + 'A' * (l-1);
-    // c_in at roll t: 'A' (t < l), the draft (t == l), s[p + t - l] (t > l)
-    const int l = threadIdx.x + 1;
-    const int ic = cs.sub_cand[a.draft * 4 + ins_lane[s]];
-    uint64_t f = fh[a.g], r = rh[a.g];
-    changelast(f, r, k, fd, cs.fseed[ic], rd, cs.rseed[ic]);
-    for (int t = 1, ti = 0; t < k; ++t) {
-      const int co = a.row[clamp64(a.w + t - 1, 0, sh.L - 1)];
-      uint64_t fi = fd, ri = rd;
-      if (t < l) {
-        fi = cs.fseed['A'];
-        ri = cs.rseed['A'];
-      } else if (t > l) {
-        const int suf = a.row[clamp64(a.p + t - l, 0, sh.L - 1)];
-        fi = cs.fseed[suf];
-        ri = cs.rseed[suf];
+  __shared__ int s_surv[kSurvivors], s_exact[kSurvivors];
+  __shared__ int s_nsurv, s_slot;
+
+  // the pad slots take the row se_sites computed for window 0
+  const int nlive = *n_sites < sh.S ? *n_sites : sh.S;
+  for (int64_t s = nlive + (int64_t)blockIdx.x * kInsThreads + threadIdx.x; s < sh.S;
+       s += (int64_t)gridDim.x * kInsThreads) {
+    for (int c = 0; c < 4; ++c) {
+      gate[s * 4 + c] = pad_row[c];
+      sub_sup[s * 4 + c] = (int8_t)pad_row[4 + c];
+    }
+    for (int d = 0; d < sh.MD; ++d) del_sup[s * sh.MD + d] = (int8_t)pad_row[8 + d];
+    ins_lane[s] = (int8_t)pad_row[15];
+  }
+
+  // this block's slot: the blockIdx.x-th set bit of the need bitmap
+  const int nwords = (sh.S + 31) / 32;
+  const int per = (nwords + kInsThreads - 1) / kInsThreads;
+  const int wa = threadIdx.x * per, wb = wa + per < nwords ? wa + per : nwords;
+  int mine = 0;
+  for (int i = wa; i < wb; ++i) mine += __popc(need_bits[i]);
+  int n_need;
+  const int before = gp_block_exclusive_scan(mine, &n_need);
+  const int b = blockIdx.x;
+  if (b >= n_need || b >= sh.SI) return;  // block-uniform
+  if (b >= before && b < before + mine) {
+    int rem = b - before;
+    for (int i = wa; i < wb; ++i) {
+      uint32_t word = need_bits[i];
+      const int c = __popc(word);
+      if (rem < c) {
+        for (; rem; --rem) word &= word - 1;
+        s_slot = i * 32 + __ffs(word) - 1;
+        break;
       }
-      roll(f, r, k, cs.fseed[co], fi, cs.rseed[co], ri);
-      if ((t - 1) % sh.jump == 0) {  // t in j_ins
-        s_ref_f[(l - 1) * T + ti] = f;
-        s_ref_r[(l - 1) * T + ti] = r;
-        ++ti;
-      }
+      rem -= c;
     }
   }
+  gp_load_window_tables(s_t, sh.k, tf, tr, fclass);
   __syncthreads();
-  // stage 1: the h1 bit alone bounds each combo's support from above
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+  const int s = s_slot;
+  const SiteAt a = site_at(sh, codes, site[s]);
+  stage_site(sh, a, s_sb, threadIdx.x, kInsThreads);
+  __syncthreads();
+
+  const int k = sh.k, T = sh.T, C = sh.C;
+  // reference points: length group l's combo is the index char + 'A' *
+  // (l - 1); point t (after 1 + t * jump rolls) is the window of the edited
+  // draft at w + 1 + t * jump: s before p, the index char, l - 1 'A's, then
+  // s from p on
+  const int ic = cs.sub_cand[a.draft * 4 + ins_lane[s]];
+  for (int it = threadIdx.x; it < sh.MI * T; it += kInsThreads) {
+    const int l = it / T + 1, roll = 1 + (it % T) * sh.jump;
+    const uint8_t* sb = s_sb;
+    uint64_t f, r;
+    gp_window_hash(s_t, k, [sb, roll, l, ic, k](int q) {
+      const int o = roll + q;
+      return o < k - 1 ? sb[o] : o == k - 1 ? (uint8_t)ic : o < k - 1 + l ? (uint8_t)'A'
+                                                                         : sb[o - l];
+    }, f, r);
+    s_ref_f[it] = f;
+    s_ref_r[it] = r;
+  }
+  __syncthreads();
+  // stage 1: the h1 bit alone bounds each combo's support from above; a
+  // combo stops once even all its remaining points could not reach thr_edit
+  for (int c = threadIdx.x; c < C; c += kInsThreads) {
     const int g = cs.combo_len[c] - 1;
     int cnt = 0;
-    for (int t = 0; t < T; ++t)
+    for (int t = 0; t < T && (float)(cnt + T - t) >= sh.thr_edit; ++t)
       cnt += probe_bit(pb, (s_ref_f[g * T + t] ^ cs.dfi[c * T + t]) +
                                (s_ref_r[g * T + t] ^ cs.dri[c * T + t]));
     s_pass[c] = (float)cnt >= sh.thr_edit;
@@ -442,58 +464,62 @@ __global__ void se_ins(Probe pb, Shape sh, Consts cs, const uint8_t* __restrict_
     for (int base = 0; base < C; base += 32) {
       const int c = base + lane;
       const bool ps = c < C && s_pass[c];
-      const unsigned b = __ballot_sync(kFull, ps);
-      const int pos = n + __popc(b & ((1u << lane) - 1));
+      const unsigned bl = __ballot_sync(kFull, ps);
+      const int pos = n + __popc(bl & ((1u << lane) - 1));
       if (ps && pos < kSurvivors) s_surv[pos] = c;
-      n += __popc(b);
+      n += __popc(bl);
     }
     if (lane == 0) {
       s_nsurv = n;
       ins_ok[s] = n <= kSurvivors;
     }
+    for (int i = lane; i < kSurvivors; i += 32) s_exact[i] = 0;
   }
   __syncthreads();
-  // stage 2: exact full-h counts of the survivors (written on overflow too)
+  // stage 2: exact full-h counts of the survivors (written on overflow
+  // too), one (survivor, point) pair per thread
   const int ns = s_nsurv < kSurvivors ? s_nsurv : kSurvivors;
-  for (int i = threadIdx.x; i < ns; i += blockDim.x) {
+  for (int it = threadIdx.x; it < ns * T; it += kInsThreads) {
+    const int i = it / T, t = it % T;
     const int c = s_surv[i], g = cs.combo_len[c] - 1;
-    int cnt = 0;
-    for (int t = 0; t < T; ++t)
-      cnt += probe_full(pb, (s_ref_f[g * T + t] ^ cs.dfi[c * T + t]) +
-                                (s_ref_r[g * T + t] ^ cs.dri[c * T + t]));
-    ins_sup[(int64_t)s * C + c] = (int8_t)cnt;
+    if (probe_full(pb, (s_ref_f[g * T + t] ^ cs.dfi[c * T + t]) +
+                           (s_ref_r[g * T + t] ^ cs.dri[c * T + t])))
+      atomicAdd(s_exact + i, 1);
   }
+  __syncthreads();
+  for (int i = threadIdx.x; i < ns; i += kInsThreads)
+    ins_sup[(int64_t)s * C + s_surv[i]] = (int8_t)s_exact[i];
 }
 
+// ---- scratch -----------------------------------------------------------------
+
 struct Scratch {
-  uint64_t *fh, *rh;
-  uint8_t *flags, *hot, *need_flag;
-  int32_t *blk_cnt, *blk_off, *need_sel, *n_need;
-  int64_t bytes;
+  int32_t *tile_cnt, *tile_off, *tile_heads;
+  uint32_t* need_bits;
+  uint8_t* pad_row;
+  int64_t ntiles, bytes;
+  int cap;
 };
 
 int64_t align256(int64_t x) { return (x + 255) & ~(int64_t)255; }
 
-Scratch carve(void* base, int64_t R, int64_t L, int k, int S, int SI) {
-  const int64_t nw = L - k + 1, n = R * nw;
-  const int64_t nblk = R * ((nw + kThreads - 1) / kThreads);
-  char* p = (char*)base;
+Scratch carve(void* base, int64_t R, int64_t L, int k, int S) {
+  const int64_t nw = L - k + 1;
   Scratch s;
+  s.ntiles = R * ((nw + kTile - 1) / kTile);
+  s.cap = (kTile + k - 1) / k;  // heads lie >= k windows apart
+  char* p = (char*)base;
   int64_t off = 0;
   auto take = [&](int64_t bytes) {
     char* q = p ? p + off : nullptr;
     off += align256(bytes);
     return q;
   };
-  s.fh = (uint64_t*)take(8 * n);
-  s.rh = (uint64_t*)take(8 * n);
-  s.flags = (uint8_t*)take(n);
-  s.hot = (uint8_t*)take(n);
-  s.blk_cnt = (int32_t*)take(4 * nblk);
-  s.blk_off = (int32_t*)take(4 * nblk);
-  s.need_flag = (uint8_t*)take(S);
-  s.need_sel = (int32_t*)take(4 * (int64_t)SI);
-  s.n_need = (int32_t*)take(4);
+  s.tile_cnt = (int32_t*)take(4 * s.ntiles);
+  s.tile_off = (int32_t*)take(4 * s.ntiles);
+  s.tile_heads = (int32_t*)take(4 * s.ntiles * s.cap);
+  s.need_bits = (uint32_t*)take(4 * (int64_t)((S + 31) / 32));
+  s.pad_row = (uint8_t*)take(kPadRow);
   s.bytes = off;
   return s;
 }
@@ -503,15 +529,16 @@ Scratch carve(void* base, int64_t R, int64_t L, int k, int S, int SI) {
 // Bytes of device scratch one gp_scan_eval call of this shape needs.
 extern "C" int64_t gp_scan_eval_scratch_bytes(int64_t R, int64_t L, int k, int S,
                                               int SI) {
-  return carve(nullptr, R, L, k, S, SI).bytes;
+  (void)SI;
+  return carve(nullptr, R, L, k, S).bytes;
 }
 
 // codes: uint8[R, L] row-major; words: uint32[ceil(bits/32)]; tf, tr,
 // fclass: kernel 2's scan tables for k; kmul = k * MULTI_SEED (mod 2^64);
 // c64 / c8: the constant tables (ops/scan_eval.py:_Consts); scratch:
 // gp_scan_eval_scratch_bytes(R, L, k, S, SI) bytes.  The nine outputs as
-// ops/scan_eval.scan_eval documents them.  Launches the chain on `stream`;
-// returns the first nonzero cudaError_t.
+// ops/scan_eval.scan_eval documents them.  Launches on `stream`; returns
+// the first nonzero cudaError_t.
 extern "C" int gp_scan_eval(
     const void* words, uint64_t bits, int h, int k, int jump, int max_ins,
     int max_del, float thr_edit, float thr_missing, int S, int SI, int C, int T,
@@ -521,7 +548,7 @@ extern "C" int gp_scan_eval(
     void* sub_sup, void* del_sup, void* ins_lane, void* ins_ok, void* ins_sup,
     void* stream) {
   const int64_t nw = L - k + 1;
-  if (k < 1 || k > kMaxK || h < 1 || h > 16 || jump < 1 || bits == 0 ||
+  if (k < 1 || k > kGpMaxK || h < 1 || h > 16 || jump < 1 || bits == 0 ||
       max_ins < 0 || max_ins > kMaxMI || max_del < 0 || max_del > kMaxMD ||
       C < 0 || C > kMaxC || T < 0 || T > kMaxT || S < 1 || SI < 1 || R < 1 ||
       R > 65535 || nw < 1 || R * nw >= (int64_t)INT32_MAX)
@@ -530,14 +557,14 @@ extern "C" int gp_scan_eval(
   const Probe pb{(const uint32_t*)words, bits, (bits & (bits - 1)) == 0, h, kmul};
   const Shape sh{R, L, nw, k, jump, S, SI, C, T, max_del, max_ins, thr_edit,
                  thr_missing};
-  const uint64_t* w64 = (const uint64_t*)c64;
+  const uint64_t* w64 = (const uint64_t*)c64;  // fseed | rseed | dfs | drs | dfi | dri
   const uint8_t* w8 = (const uint8_t*)c8;
-  const Consts cs{w64, w64 + 256, w64 + 512, w64 + 1536, w64 + 2560,
-                  w64 + 2560 + (int64_t)C * T, w8, w8 + 1024, w8 + 1280};
-  const Scratch sc = carve(scratch, R, L, k, S, SI);
+  const Consts cs{w64 + 512, w64 + 1536, w64 + 2560, w64 + 2560 + (int64_t)C * T,
+                  w8, w8 + 1024, w8 + 1280};
+  const Scratch sc = carve(scratch, R, L, k, S);
   const uint8_t* cd = (const uint8_t*)codes;
-  const int64_t nbx = (nw + kThreads - 1) / kThreads;
-  const dim3 grid((unsigned)nbx, (unsigned)R);
+  const uint64_t *tf64 = (const uint64_t*)tf, *tr64 = (const uint64_t*)tr;
+  const uint8_t* fc = (const uint8_t*)fclass;
   cudaError_t err;
 #define GP_CHECK(call)                  \
   if ((err = (call)) != cudaSuccess) return (int)err;
@@ -545,30 +572,25 @@ extern "C" int gp_scan_eval(
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   GP_CHECK(cudaMemsetAsync(ins_ok, 0, (size_t)S, st));
   GP_CHECK(cudaMemsetAsync(ins_sup, 0, (size_t)S * C, st));
-  se_scan<<<grid, kThreads, 0, st>>>(
-      pb, sh, cd, (const uint64_t*)tf, (const uint64_t*)tr, (const uint8_t*)fclass,
-      cs.accepted, sc.fh, sc.rh, sc.flags, (uint8_t*)packed, (nw + 7) / 8);
+  se_tile<<<dim3((unsigned)((nw + kTile - 1) / kTile), (unsigned)R), kTileThreads, 0, st>>>(
+      pb, sh, cd, tf64, tr64, fc, cs.accepted, (uint8_t*)packed, (nw + 7) / 8,
+      sc.tile_cnt, sc.tile_heads, sc.cap);
   GP_LAUNCHED();
-  se_hot<<<grid, kThreads, 0, st>>>(sh, sc.flags, sc.hot);
+  se_compact<<<1, kCompactThreads, 0, st>>>(sc.ntiles, sc.tile_cnt, sc.tile_heads, sc.cap,
+                                            sc.tile_off, (int32_t*)n_sites,
+                                            (int32_t*)site, S, sc.need_bits);
   GP_LAUNCHED();
-  se_head_count<<<grid, kThreads, 0, st>>>(sh, sc.hot, sc.blk_cnt);
+  const int64_t site_blocks = (S + kSiteWarps) / kSiteWarps;  // S + 1 items at most
+  se_sites<<<(unsigned)(site_blocks < kMaxSiteBlocks ? site_blocks : kMaxSiteBlocks),
+             kSiteWarps * 32, 0, st>>>(
+      pb, sh, cs, cd, tf64, tr64, fc, (const int32_t*)n_sites, (const int32_t*)site,
+      (uint8_t*)gate, (int8_t*)sub_sup, (int8_t*)del_sup, (int8_t*)ins_lane,
+      sc.need_bits, sc.pad_row);
   GP_LAUNCHED();
-  se_block_scan<<<1, kScanBlock, 0, st>>>(R * nbx, sc.blk_cnt, sc.blk_off,
-                                          (int32_t*)n_sites, (int32_t*)site, S);
-  GP_LAUNCHED();
-  se_head_write<<<grid, kThreads, 0, st>>>(sh, sc.hot, sc.blk_off, (int32_t*)site);
-  GP_LAUNCHED();
-  se_sites<<<(S + kSiteWarps - 1) / kSiteWarps, 32 * kSiteWarps, 0, st>>>(
-      pb, sh, cs, cd, sc.fh, sc.rh, (const int32_t*)site, (uint8_t*)gate,
-      (int8_t*)sub_sup, (int8_t*)del_sup, (int8_t*)ins_lane, sc.need_flag);
-  GP_LAUNCHED();
-  se_need_compact<<<1, kScanBlock, 0, st>>>(S, SI, sc.need_flag, sc.need_sel,
-                                            sc.n_need);
-  GP_LAUNCHED();
-  se_ins<<<SI, kInsThreads, 0, st>>>(pb, sh, cs, cd, sc.fh, sc.rh,
-                                     (const int32_t*)site, (const int8_t*)ins_lane,
-                                     sc.need_sel, sc.n_need, (uint8_t*)ins_ok,
-                                     (int8_t*)ins_sup);
+  se_ins<<<SI, kInsThreads, 0, st>>>(
+      pb, sh, cs, cd, tf64, tr64, fc, (const int32_t*)n_sites, (const int32_t*)site,
+      sc.need_bits, sc.pad_row, (uint8_t*)gate, (int8_t*)sub_sup, (int8_t*)del_sup,
+      (int8_t*)ins_lane, (uint8_t*)ins_ok, (int8_t*)ins_sup);
   GP_LAUNCHED();
 #undef GP_CHECK
 #undef GP_LAUNCHED

@@ -305,8 +305,10 @@ def save_btllib_bf(bf: BloomFilter, path: str) -> None:
         f.write(bf.array.tobytes())
 
 
-def load_btllib_bf(path: str) -> BloomFilter:
-    """Read a btllib *BloomFilter container into this package's layout."""
+def load_btllib_bf(path: str, k: int | None = None) -> BloomFilter:
+    """Read a btllib plain Bloom-filter container into this package's
+    layout.  A header without `k` raises unless the caller passes `k`
+    (the JAX package's loader takes 0 there)."""
     fields: dict[str, int] = {}
     with open(path, "rb") as f:
         saw_end = False
@@ -332,8 +334,10 @@ def load_btllib_bf(path: str) -> BloomFilter:
             raise ValueError(
                 f"{path}: btllib header missing bytes/hash_num fields"
             )
+        if "k" not in fields and k is None:
+            raise ValueError(f"{path}: btllib header has no k field; pass k=")
         bf = BloomFilter(fields["bytes"], fields["hash_num"],
-                         fields.get("k", 0))
+                         fields["k"] if "k" in fields else k)
         data = f.read(bf.bytes)
     if len(data) != bf.bytes:
         raise ValueError(
@@ -354,5 +358,12 @@ def load_any(path: str) -> BloomFilter:
         return load_ntedit_bf(path)
     first = head.split(b"\n", 1)[0].strip()
     if (first.startswith(b"[BTL") and b"BloomFilter" in first):
+        if b"Counting" in first or b"Seed" in first:
+            # their payloads are not a plain bit array (the JAX package's
+            # load_any reads them as one)
+            raise ValueError(
+                f"{path}: {first.decode(errors='replace')} is not a plain Bloom "
+                "filter container"
+            )
         return load_btllib_bf(path)
     return BloomFilter.load(path)

@@ -132,14 +132,12 @@ def lib() -> ctypes.CDLL:
         L.gp_scan_eval.restype = i32
         L.gp_scan_eval_scratch_bytes.argtypes = [i64, i64, i32, i32, i32]
         L.gp_scan_eval_scratch_bytes.restype = i64
-        L.gp_bs_keys.argtypes = [vp, i64, vp, i64, vp, i32, i32, vp, vp, vp, vp, vp, vp]
-        L.gp_bs_run_count.argtypes = [vp, i64, vp, vp, vp, vp]
-        L.gp_bs_run_write.argtypes = [vp, vp, i64, vp, i64, vp, vp, vp, vp]
-        L.gp_bs_slot_add.argtypes = [vp, vp, i64, i32, u64, u64, vp, vp]
-        L.gp_bs_promote.argtypes = [vp, vp, vp, i64, i32, u64, u64, vp, u64, vp, vp]
-        for fn in (L.gp_bs_keys, L.gp_bs_run_count, L.gp_bs_run_write,
-                   L.gp_bs_slot_add, L.gp_bs_promote):
-            fn.restype = i32
+        L.gp_bf_count.argtypes = [vp, i64, vp, i64, i32, vp, vp, vp, i32, u64, u64,
+                                  vp, vp]
+        L.gp_bf_count.restype = i32
+        L.gp_bf_promote.argtypes = [vp, i64, vp, i64, vp, i32, i32, vp, vp, vp, i32,
+                                    u64, u64, vp, u64, vp, vp]
+        L.gp_bf_promote.restype = i32
         _LIB = L
         return L
 

@@ -26,8 +26,9 @@ two-stage: an h1-only prescreen bounds each combo's support from above, and
 only the first T_SURVIVORS combos whose bound passes get exact full-h
 probes.
 
-`scan_eval` launches the kernel chain of csrc/scan_eval.cu for CUDA tensors
-and runs `scan_eval_reference`, the plain torch version on int64 lanes
+`scan_eval` launches the four kernels of csrc/scan_eval.cu (kernel 4: a
+tile pass, compaction, sites, insertions) for CUDA tensors and runs
+`scan_eval_reference`, the plain torch version on int64 lanes
 (ops/u64.py), for CPU tensors.  Two deliberate differences from the JAX
 program, both toward the host filter that the walker probes (as kernel 2,
 ops/scan_conv.py): the window hashes give bytes 1, 3, 4 and 7 their ntHash
@@ -408,7 +409,7 @@ def scan_eval(words: torch.Tensor, bits: int, h: int, codes: torch.Tensor,
 
     (S = cfg.s_max, C = tables.n_combos).  words int32[ceil(bits/32)] on
     the same device.  CPU tensors run the plain version; CUDA tensors
-    launch the kernel chain on the current stream."""
+    launch the four kernels on the current stream."""
     _check_args(bits, h, codes, cfg, tables)
     if codes.device.type == "cpu":
         return scan_eval_reference(words, bits, h, codes, cfg, tables)

@@ -246,7 +246,9 @@ def make_builder(cfg: PipelineConfig, workdir: str) -> BFBuilder:
 
 
 def check_ported(cfg: PipelineConfig) -> None:
-    """Refuse, at startup, a configuration this port cannot run yet."""
+    """Refuse, at startup, a configuration this port cannot run: not yet
+    (device_bf_build, the jax backend), or not here (the hybrid backend on
+    cuda without CUDA, never a CPU fallback; a fork pool beside the card)."""
     if cfg.device_bf_build:
         raise NotImplementedError(
             "device_bf_build acts only with the jax backend, which is not "
@@ -255,6 +257,20 @@ def check_ported(cfg: PipelineConfig) -> None:
         )
     if cfg.backend not in ("numpy", "hybrid"):
         raise NotImplementedError(f"backend {cfg.backend!r} is not ported")
+    if cfg.process_pool and cfg.backend != "numpy":
+        raise ValueError(
+            "--process-pool requires --backend numpy (forked workers cannot "
+            "share a CUDA context)"
+        )
+    if cfg.backend == "hybrid" and cfg.device.startswith("cuda"):
+        import torch
+
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"--backend hybrid runs on --device {cfg.device}, and CUDA is "
+                "not available; --backend numpy is the host path (--device cpu "
+                "runs the plain torch versions, for tests)"
+            )
 
 
 def run_bulk(cfg: PipelineConfig) -> dict:
@@ -315,12 +331,7 @@ def run_bulk(cfg: PipelineConfig) -> dict:
         executor = None
         fill_exec = None
         dev_futs: list = []  # the device claimer's futures (fill_overlap)
-        if cfg.process_pool and cfg.backend != "numpy":
-            log.warning(
-                "--process-pool requires the numpy backend (forked workers "
-                "cannot share a CUDA context); falling back to the thread pool"
-            )
-        if cfg.process_pool and cfg.backend == "numpy":
+        if cfg.process_pool:
             import concurrent.futures
             import multiprocessing
 
@@ -387,10 +398,10 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                 # the device claims fill batches from the TAIL while the
                 # host lookahead works the front — whoever claims first
                 # fills; device-claimed batches get the documented
-                # slight-superset sort-based filters (ops/bloom_sort).
+                # slight-superset device filters (ops/bloom_sort).
                 # Claims are bounded: at most DEV_FILL_AHEAD unconsumed
-                # futures may be outstanding (the totals and keys are tens
-                # of MB per batch on the device), and ANY failure lands in
+                # futures may be outstanding (the totals are tens of MB per
+                # batch on the device), and ANY failure lands in
                 # the future (set_exception), so the consuming worker
                 # surfaces it instead of deadlocking.  No host fallback.
                 DEV_FILL_AHEAD = 3

@@ -15,6 +15,7 @@ import torch
 from goldpolish_tpu.ops import bloom_sort as jbs
 from goldpolish_tpu_torch import native
 from goldpolish_tpu_torch.ops import bloom
+from goldpolish_tpu_torch.ops import nthash as nt
 from goldpolish_tpu_torch.ops import bloom_sort as tbs
 
 H = 4
@@ -172,45 +173,93 @@ def test_stream_checks():
 
 def test_chunk_env_override(monkeypatch):
     """GPTPU_SORT_CHUNK_BASES sets the default chunk: the chunked path runs
-    (several phase-A groups) and gives the same bits."""
+    (pass A over several groups, then pass B over each) and gives the same
+    bits."""
     reads = _reads_cov(_genome(11, 9000), 5)
     thrs = [5] * len(reads)
     single = tbs.device_fill_bfs_sorted(reads, thrs, [32], H, CBF_BYTES, BF_BYTES,
                                         device="cpu")
     monkeypatch.setenv("GPTPU_SORT_CHUNK_BASES", "4096")
-    calls = tbs.promote_reference.calls.value
-    runs = tbs.distinct_runs_reference.calls.value
+    counts = tbs.count_reference.calls.value
+    promotes = tbs.promote_reference.calls.value
     chunked = tbs.device_fill_bfs_sorted(reads, thrs, [32], H, CBF_BYTES, BF_BYTES,
                                          device="cpu")
     assert bytes(single[0].array) == bytes(chunked[0].array)
-    assert tbs.promote_reference.calls.value == calls + 1
-    assert tbs.distinct_runs_reference.calls.value - runs > 2  # groups + phase B
+    groups = len(tbs._groups(reads, thrs, 4096))
+    assert groups > 2
+    assert tbs.count_reference.calls.value - counts == groups
+    assert tbs.promote_reference.calls.value - promotes == groups
 
 
-def test_run_counts_only_valid_windows():
-    """A valid window whose hash is 2^64 - 1 shares its key with the pads;
-    its run counts the valid windows alone (the JAX run also counts the pads
-    of its halo'd row grid: a reference fault not copied, ROADMAP queue 3)."""
-    keys = torch.tensor([5, 5, 9, tbs.PAD_KEY, tbs.PAD_KEY, tbs.PAD_KEY],
-                        dtype=torch.int64)
-    thr = torch.tensor([7, 3, 255, 4, 255, 255], dtype=torch.uint8)
-    rep_key, cnt, rep_thr = tbs.distinct_runs_reference(keys, thr)
-    assert rep_key.tolist() == [5, 9, tbs.PAD_KEY]
-    assert cnt.tolist() == [2, 0, 1]
-    assert rep_thr.tolist() == [3, 255, 4]
+def test_slot_collisions_count_twice():
+    """Two of a window's h hashes on one slot add 2 there, as the JAX
+    repeat(cnt, h) scatter does: with one slot, one window counts h; with a
+    3-slot counting filter every 4-hash k-mer has a collision, and the
+    promotion (thresholds near the totals) equals the JAX build's."""
+    totals = torch.zeros(1, dtype=torch.int32)
+    tbs.count_hashes_reference(torch.tensor([123456789], dtype=torch.int64), 32, H, 1,
+                               totals)
+    assert totals.tolist() == [H]
+    truth = _genome(21, 400)
+    reads = [truth[a : a + 40] for a in range(0, 360, 40)]
+    for thr in (6, 12, 15):
+        want = jbs.device_fill_bfs_sorted(reads, [thr] * len(reads), [32, 28], H, 3,
+                                          BF_BYTES, chunk_bases=SINGLE)
+        got = tbs.device_fill_bfs_sorted(reads, [thr] * len(reads), [32, 28], H, 3,
+                                         BF_BYTES, chunk_bases=SINGLE, device="cpu")
+        for w, g in zip(want, got):
+            assert bytes(g.array) == bytes(w.array), thr
+
+
+@pytest.mark.parametrize("chunk_bases", [SINGLE, 1400])
+def test_three_thresholds_across_chunks(chunk_bases):
+    """One k-mer seen three times, in reads of thresholds 9, 5 and 12 (at
+    k = 32: 7, 3 and 10), the last in another chunk: it promotes at the
+    smallest, and not once the 5 is a 6; the reads' own k-mers never do."""
+    shared = _genome(22, 60)
+    pads = [_genome(23 + i, 600) for i in range(3)]
+    reads = [pads[0] + shared, shared + pads[1], pads[2] + shared]
+    assert len(tbs._groups(reads, [9, 5, 12], 1400)) == 2
+    for thrs, promoted in (([9, 5, 12], True), ([9, 6, 12], False)):
+        _want, got = _both(reads, thrs, [32], chunk_bases)
+        bf = got[0]
+        hs = nt.multi_hashes(nt.canonical_hashes(np.frombuffer(shared, np.uint8), 32),
+                             32, H)
+        assert bf.contains(hs).all() == promoted
+        assert not bf.contains(nt.multi_hashes(
+            nt.canonical_hashes(np.frombuffer(pads[1], np.uint8), 32), 32, H)).any()
+
+
+def test_hash_all_ones_counts_once():
+    """A valid window whose canonical hash is 2^64 - 1 counts once at each
+    of its slots and promotes like any other; pads are never counted (the
+    JAX run of that hash would also count every pad of its row grid, a
+    reference fault not copied: ROADMAP queue 3)."""
+    ones = torch.tensor([-1], dtype=torch.int64)  # 2^64 - 1 as int64
+    slots = tbs.u64.umod(torch.stack(tbs._hashes(ones, 32, H))[:, 0], 97)
+    totals = torch.zeros(97, dtype=torch.int32)
+    tbs.count_hashes_reference(ones, 32, H, 97, totals)
+    want = torch.zeros(97, dtype=torch.int32)
+    want.index_add_(0, slots, torch.ones(H, dtype=torch.int32))
+    assert torch.equal(totals, want)
+    words = torch.zeros(BF_BYTES // 4, dtype=torch.int32)
+    for thr, n_set in ((2, 0), (1, 1)):
+        tbs.promote_hashes_reference(ones, torch.tensor([thr], dtype=torch.int32), 32,
+                                     H, 97, totals, BF_BYTES * 8, words)
+        assert (int(np.unpackbits(words.numpy().view(np.uint8)).sum()) > 0) == n_set
 
 
 def test_window_keys_reference_marks_read_ends():
-    """Windows that cross into the next read or past the end are pads; a
-    window's threshold is its read's plus delta, clamped to 1."""
+    """Windows that cross into the next read or past the end are not valid;
+    a window's threshold is its read's plus delta, clamped to 1."""
     codes = torch.frombuffer(bytearray(b"ACGTACGTAC" + b"GGTTCCA"), dtype=torch.uint8)
     offsets = torch.tensor([0, 10, 17], dtype=torch.int64)
     thrs = torch.tensor([3, 9], dtype=torch.uint8)
-    keys, thr = tbs.window_keys_reference(codes, offsets, thrs, 4, -2)
+    base, thr = tbs.valid_windows_reference(codes, offsets, thrs, 4, -2)
     valid = [p for p in range(17) if (p + 4 <= 10) or (10 <= p and p + 4 <= 17)]
-    assert [p for p in range(17) if keys[p] != tbs.PAD_KEY] == valid
-    assert thr.tolist() == [1 if p in valid and p < 10 else 7 if p in valid else 255
-                            for p in range(17)]
+    fh, rh = tbs.strand_hashes_reference(codes[None, :], 4)
+    assert base.tolist() == (fh + rh)[0][valid].tolist()
+    assert thr.tolist() == [1 if p < 10 else 7 for p in valid]
 
 
 def test_cuda_device_raises_without_cuda():
@@ -239,6 +288,30 @@ def test_cuda_kernel_matches_plain(chunk_bases):
         assert all(f.launches.value > b for f, b in zip(tbs.KERNEL_OPS, before))
         want = tbs.device_fill_bfs_sorted_reference(
             reads, thrs, ks, H, CBF_BYTES + 12, bf_bytes, chunk_bases=chunk_bases)
+        for g, w in zip(got, want):
+            assert bytes(g.array) == bytes(w.array)
+            assert g.pop_count > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", range(3))
+def test_cuda_kernel_matches_plain_soak(seed):
+    """Kernel 5 against the plain version on the card: mixed read lengths
+    (empty and shorter than k among them), mixed thresholds, k = 33 and 20,
+    h = 3, a non-power-of-two filter, single and chunked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no interpret mode)")
+    rng = np.random.default_rng(300 + seed)
+    base = _genome(400 + seed, 6000)
+    reads, thrs = [], []
+    for _ in range(60):
+        a = int(rng.integers(0, 5500))
+        reads.append(base[a : a + int(rng.integers(0, 1500))])
+        thrs.append(int(rng.integers(1, 16)))
+    for chunk_bases in (SINGLE, 2000):
+        args = (reads, thrs, [33, 20], 3, CBF_BYTES + 12, 49160)
+        got = tbs.device_fill_bfs_sorted(*args, chunk_bases=chunk_bases, device="cuda")
+        want = tbs.device_fill_bfs_sorted_reference(*args, chunk_bases=chunk_bases)
         for g, w in zip(got, want):
             assert bytes(g.array) == bytes(w.array)
             assert g.pop_count > 0

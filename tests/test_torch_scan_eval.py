@@ -385,6 +385,34 @@ def test_cuda_kernel_matches_plain(k):
         want = _port(filt, kw, rows, device="cpu")
         for name, g, w in zip(NAMES, got, want):
             assert g.shape == w.shape and np.array_equal(g, w), name
+    # the scratch is the tile staging: no per-window array
+    ecfg = tse.EvalConfig(**kw)
+    outs = tse.scan_eval(_words(rand).cuda(), int(rand.bits), 4,
+                         torch.from_numpy(broken).cuda(), ecfg,
+                         siteeval.make_tables(k, ecfg.jump, ecfg.max_ins, ecfg.max_del))
+    assert outs.scratch.numel() < broken.size // 4
     site, lane = want[2], want[6]
     assert int(want[1]) > kw["s_max"]
     assert int(((site >= 0) & (lane >= 0)).sum()) > tse.EvalConfig(**kw).resolved_s_ins()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [*_PARITY, "bytes_1_3_4_7", "k40"])
+def test_cuda_kernel_matches_plain_small(case):
+    """The kernels against the plain version on the parity cases' [3, 4000]
+    rows (one partial tile per row, S and s_ins overflow, a non-power-of-two
+    filter, k = 20 with h = 3, lowercase, N, IUPAC and bytes 1, 3, 4, 7,
+    and k = 40, past the pipeline's k values)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no interpret mode)")
+    extra = {"bytes_1_3_4_7": (32, 4, {}, 1 << 14, 8, 150),
+             "k40": (40, 4, {}, 1 << 14, 9, 150)}
+    k, h, over, bf_bytes, seed, spacing = _PARITY.get(case) or extra[case]
+    draft, bf = _scenario(11000, k, h, seed, bf_bytes, spacing,
+                          control=case == "bytes_1_3_4_7")
+    codes, _meta = _rows(draft, k)
+    kw = _ecfg_kw(k, h, **over)
+    got = _port(bf, kw, codes, device="cuda")
+    want = _port(bf, kw, codes, device="cpu")
+    for name, g, w in zip(NAMES, got, want):
+        assert g.shape == w.shape and np.array_equal(g, w), name

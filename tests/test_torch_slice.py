@@ -1,7 +1,7 @@
 """The port's bulk slice end to end against the JAX package, on the CPU.
 
 run_bulk and cli.main of goldpolish_tpu_torch (backend numpy, and backend
-hybrid with the plain torch fused eval on device="cpu" forced on with
+hybrid, the default, with the plain torch fused eval on device="cpu" forced on with
 GPTPU_FORCE_DEVICE_SCAN) must write, with the sealer on (the default),
 the bytes of tests/golden/expected_polished.fa that tests/test_golden.py
 pins for the JAX package, and with the sealer off the same bytes as the
@@ -117,7 +117,8 @@ def _one_batch(pkg_bulk, cfg, workspace):
 def test_polish_batch_records_reports_sealer_stats(tmp_path):
     """One batch through the chain: records, sealer stats and stage timings
     as the JAX package reports them."""
-    got = _one_batch(bulk, _golden(PipelineConfig, str(tmp_path), 1, run_sealer=True),
+    got = _one_batch(bulk, _golden(PipelineConfig, str(tmp_path), 1, run_sealer=True,
+                                   backend="numpy"),
                      str(tmp_path))
     want = _one_batch(jax_bulk, _golden(JaxConfig, str(tmp_path), 1, run_sealer=True),
                       str(tmp_path))
@@ -128,17 +129,46 @@ def test_polish_batch_records_reports_sealer_stats(tmp_path):
     assert "sealer_s" in got.stats["timing"]
 
 
+def _golden_argv(tmp_path, out):
+    return [os.path.join(GOLD, "draft.fa"), os.path.join(GOLD, "reads.fq"), out,
+            "-k", "32", "-k", "28", "-b", "2",
+            "--mappings", os.path.join(GOLD, "map.paf"), "-m", str(tmp_path / "ws")]
+
+
 def test_cli_default_sealer_matches_golden(tmp_path):
+    """The host path (--backend numpy) with the sealer on, the default
+    chain, writes the golden bytes."""
     out = str(tmp_path / "cli.fa")
-    rc = cli.main([
-        os.path.join(GOLD, "draft.fa"), os.path.join(GOLD, "reads.fq"), out,
-        "-k", "32", "-k", "28", "-b", "2",
-        "--mappings", os.path.join(GOLD, "map.paf"),
-        "-m", str(tmp_path / "ws"),
-    ])
+    rc = cli.main(_golden_argv(tmp_path, out) + ["--backend", "numpy"])
     assert rc == 0
     with open(out, "rb") as f:
         assert f.read() == _expected_golden()
+
+
+def test_cli_defaults_to_the_card():
+    """The CLI's defaults are the hybrid backend on CUDA; the host path and
+    the CPU device are explicit."""
+    args = cli.build_parser().parse_args(["d.fa", "r.fq", "o.fa"])
+    assert (args.backend, args.device) == ("hybrid", "cuda")
+    cfg = cli.args_to_config(args)
+    assert (cfg.backend, cfg.device) == ("hybrid", "cuda")
+    assert (PipelineConfig().backend, PipelineConfig().device) == ("hybrid", "cuda")
+    args = cli.build_parser().parse_args(["d.fa", "r.fq", "o.fa", "--backend", "numpy"])
+    assert args.backend == "numpy"
+
+
+def test_cli_default_raises_without_cuda(tmp_path, monkeypatch):
+    """With default flags and no CUDA the run refuses at startup: no CPU
+    fallback, no output written.  --process-pool names --backend numpy."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = str(tmp_path / "cli.fa")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(_golden_argv(tmp_path, out))
+    assert not os.path.exists(out)
+    with pytest.raises(ValueError, match="--backend numpy"):
+        cli.main(_golden_argv(tmp_path, out) + ["--device", "cpu", "--process-pool"])
 
 
 def test_cli_hybrid_no_sealer_matches_jax_package(tmp_path, monkeypatch):
@@ -197,7 +227,7 @@ def test_pipelined_polish_many_shape_fuzz(monkeypatch):
 
 
 def test_unported_paths_refuse(tmp_path, monkeypatch):
-    cfg = _golden(PipelineConfig, str(tmp_path), 1)
+    cfg = _golden(PipelineConfig, str(tmp_path), 1, backend="numpy")
     cfg.device_bf_build = True
     with pytest.raises(NotImplementedError, match="device_bf_build"):
         bulk.run_bulk(cfg)
