@@ -14,7 +14,15 @@ raises and the script exits non-zero without the result line.
 3. kernels  each kernel against its plain torch version on the card, on the
             same inputs, required bit-equal (tolerance 0: integer hashing):
             probe_lo32 on [2^21, 4] against a 4 MiB filter,
-            scan_present_packed on [4, 2^19 + k - 1] mixed-alphabet codes,
+            scan_present_packed on [4, 2^19 + k - 1] rows, per k a row of
+            mixed-alphabet codes against the p = 0.75 filter and a row of
+            a mutated draft against a 4 MiB filter of its truth's k-mers
+            (what the main path's scans meet: most windows present), each
+            also against a filter whose bit count is no power of two; then
+            its edge sweep (`kernel_scan_edges`): rows of 1, 7, 8, 9, 2047,
+            2048, 2049 and 4097 windows at k = 20 and 32, h = 1 and 4, 1
+            and 3 rows, both filter kinds, on the full byte alphabet, the
+            codes also at an odd byte offset;
             and scan_eval (the fused phase-A eval) on [4, 2^18 + k - 1] rows
             cut from a mutated 1.05 Mbp draft, (a) against a 4 MiB filter of
             its truth's k-mers (bulk's per-batch filter: heads under S) and
@@ -65,8 +73,13 @@ raises and the script exits non-zero without the result line.
             records and stats, dbg_bfs launches > 0 and no plain-version
             call during the hybrid run.  Then dbg_bfs (the whole-search BFS
             kernel) against its plain version on the first 256 k = 32
-            searches of that run, at both run tiers (W = 32 and 256),
-            required equal as per-direction (k-mer, mask) sets.
+            searches of that run and on a mixed batch of 9 searches
+            (inactive directions, depth 0, thin paths, frontiers of 16, 64,
+            256 and 1,024 vertices: clean, over W and over V), each at
+            both run tiers (W = 32 and 256), required equal as
+            per-direction (k-mer, mask) sets with their counts and overflow
+            flags; each row has `levels` (the deepest level any search
+            reached) and the device time per level.
 
 Then a {"kernels": [...]} line (launches counted on the path each kernel
 serves: the main path's default arm for scan_eval, its eval-off arm for
@@ -104,6 +117,10 @@ GAP_LEN = 60
 # the whole genome, so the false-positive branching matches bulk's
 SEALER_FILTER_BYTES = 16 << 20
 SINGLE_DISPATCH = 1 << 40  # a chunk bound above any batch: one dispatch
+NON_POW2_BYTES = 49160  # a filter whose bit count is no power of two
+# window counts of a scan row that straddle kernel 2's edges: the 8-window
+# run of a thread (one output byte) and the 2,048-window tile of a block
+SCAN_EDGE_NW = (1, 7, 8, 9, 2047, 2048, 2049, 4097)
 # a kernel's bound: the larger of its bytes (each input read once, each
 # output written once) over the H100's HBM rate and its operations (one per
 # derived hash value or probe index) over the card's 67 T/s scalar rate
@@ -212,7 +229,6 @@ def phase_kernels(rng):
     import torch
 
     from goldpolish_tpu_torch.ops import bloom_probe as bp
-    from goldpolish_tpu_torch.ops import scan_conv as sc
 
     dev = torch.device("cuda")
     words = torch.from_numpy(random_words(rng, FILTER_BITS)).to(dev)
@@ -235,18 +251,89 @@ def phase_kernels(rng):
     if not probe["equal"]:
         raise AssertionError("probe_lo32 kernel disagrees with its plain version")
 
-    scans = []
+    scans = scan_rows(rng, words)
+    emit(phase="kernel_scan_edges", **scan_edges())
+    return probe, scans
+
+
+def truth_scan_inputs(row: int):
+    """The scan's input on the main path, per k: [4, row + k - 1] rows cut
+    from a mutated draft, and a 4 MiB filter of its truth's k-mers (h = 4).
+    Its own generator, so the other phases keep their inputs."""
+    from goldpolish_tpu_torch.ops import bloom
+    from goldpolish_tpu_torch.ops import nthash as nt
+
+    rng = np.random.default_rng(SEED + 2)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    truth = acgt[rng.integers(0, 4, 4 * row + 2000)].tobytes().decode()
+    draft = np.frombuffer("".join(mutate(truth, rng)).encode(), np.uint8)
+    truth = nt.encode(truth)
     for k in K_VALUES:
-        codes = torch.from_numpy(mixed_codes(rng, (4, (1 << 19) + k - 1))).to(dev)
+        bf = bloom.BloomFilter(FILTER_BITS // 8, 4, k)
+        bf.insert(nt.multi_hashes(nt.canonical_hashes(truth, k), k, 4))
+        rows = np.stack([draft[i * row : (i + 1) * row + k - 1] for i in range(4)])
+        yield k, bf.words_u32().view(np.int32).copy(), rows
+
+
+def scan_requests(words, bits: int, h: int, k: int, codes) -> int:
+    """The filter words a scan must load when a window stops at its first
+    clear bit: the windows still alive before each of the h rounds (plain
+    torch, on the tensors' device)."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import nthash as nt
+    from goldpolish_tpu_torch.ops import scan_conv as sc
+    from goldpolish_tpu_torch.ops import u64
+
+    fh, rh = sc.strand_hashes_reference(codes, k)
+    base = fh + rh
+    words64 = words.to(torch.int64)
+    alive = torch.ones_like(base, dtype=torch.bool)
+    requests = 0
+    for i in range(h):
+        requests += int(alive.sum().item())
+        t = base * u64.const(i ^ sc._kmul(k))
+        hv = t ^ u64.lsr(t, nt.MULTI_SHIFT) if i else base
+        alive &= sc.probe_bit_reference(words64, bits, hv)
+    return requests
+
+
+def scan_rows(rng, p75, time_plain: bool = True) -> list[dict]:
+    """scan_present_packed against its plain version on [4, 2^19 + k - 1]
+    rows for every k, on two filters: mixed-alphabet codes against the
+    p = 0.75 filter `p75`, then a mutated draft against a filter of its
+    truth's k-mers; each also against a filter whose bit count is no power
+    of two."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import scan_conv as sc
+
+    dev = p75.device
+    bits2 = NON_POW2_BYTES * 8
+    inputs = []
+    for k in K_VALUES:
+        codes = mixed_codes(rng, (4, (1 << 19) + k - 1))
+        inputs.append(("p75", k, p75, codes, random_words(rng, bits2)))
+    inputs += [("truth", *inp, inputs[-1][4]) for inp in truth_scan_inputs(1 << 19)]
+    scans = []
+    for label, k, words, codes, words2 in inputs:
+        words, codes, words2 = (torch.as_tensor(a).to(dev) for a in (words, codes, words2))
         got = sc.scan_present_packed(words, FILTER_BITS, 4, k, codes)
         want = sc.scan_present_packed_reference(words, FILTER_BITS, 4, k, codes)
         # a filter whose bit count is not a power of two: the full modulo
-        bits2 = 49160 * 8
-        words2 = torch.from_numpy(random_words(rng, bits2)).to(dev)
         got2 = sc.scan_present_packed(words2, bits2, 4, k, codes)
         want2 = sc.scan_present_packed_reference(words2, bits2, 4, k, codes)
+        nw = codes.shape[1] - k + 1
+        present = np.unpackbits(want.cpu().numpy(), axis=1, bitorder="little")[:, :nw]
+        requests = scan_requests(words, FILTER_BITS, 4, k, codes)
+        dev_ms = device_ms(lambda: sc.scan_present_packed(
+            words, FILTER_BITS, 4, k, codes), 20)
         row = {
-            "k": k, "shape": list(codes.shape),
+            "k": k, "filter": label, "shape": list(codes.shape),
+            "present_share": float(present.mean()),
+            # the random L2 requests the call cannot avoid, and their rate
+            "l2_requests": requests,
+            "l2_requests_per_s": requests / (dev_ms * 1e-3) if dev_ms else None,
             "equal": bool(torch.equal(got, want) and torch.equal(got2, want2)),
             "max_abs_err": int(max(
                 (got.int() - want.int()).abs().max().item(),
@@ -254,18 +341,68 @@ def phase_kernels(rng):
             )),
             "ms": time_ms(lambda: sc.scan_present_packed(
                 words, FILTER_BITS, 4, k, codes), 20),
-            "device_ms": device_ms(lambda: sc.scan_present_packed(
-                words, FILTER_BITS, 4, k, codes), 20),
+            "device_ms": dev_ms,
             "plain_ms": time_ms(lambda: sc.scan_present_packed_reference(
-                words, FILTER_BITS, 4, k, codes), 3, warm=1),
-            **bound(tensor_bytes(words, codes, want),
-                    4 * codes.shape[0] * (codes.shape[1] - k + 1)),
+                words, FILTER_BITS, 4, k, codes), 3, warm=1) if time_plain else None,
+            **bound(tensor_bytes(words, codes, want), 4 * codes.shape[0] * nw),
         }
         scans.append(row)
         emit(phase="kernel_scan_present_packed", **row)
         if not row["equal"]:
-            raise AssertionError(f"scan kernel disagrees with plain at k={k}")
-    return probe, scans
+            raise AssertionError(f"scan kernel disagrees with plain at k={k} ({label})")
+    return scans
+
+
+def scan_edge_case(nw: int, k: int, h: int, B: int, pow2: bool):
+    """A scan input with `nw` windows per row on the full byte alphabet:
+    (filter, codes uint8 [B, nw + k - 1]); every second window of the
+    rows is in the filter (a 64 KiB one, or NON_POW2_BYTES)."""
+    from goldpolish_tpu_torch.ops import bloom
+    from goldpolish_tpu_torch.ops import nthash as nt
+
+    rng = np.random.default_rng([nw, k, h, B, int(pow2)])
+    shape = (B, nw + k - 1)
+    codes = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, shape)].copy()
+    wild = rng.random(shape) < 0.03
+    codes[wild] = rng.integers(0, 256, int(wild.sum()))
+    bf = bloom.BloomFilter((1 << 16) if pow2 else NON_POW2_BYTES, h, k)
+    for row in codes:
+        bf.insert(nt.multi_hashes(nt.canonical_hashes(row, k), k, h)[::2])
+    return bf, codes
+
+
+def scan_edge_cases():
+    """Every (nw, k, h, B, pow2) of the scan's edge sweep."""
+    return [(nw, k, h, B, pow2) for nw in SCAN_EDGE_NW for k in (20, 32)
+            for h in (1, 4) for B in (1, 3) for pow2 in (True, False)]
+
+
+def scan_edge_check(case) -> None:
+    """Kernel 2 against its plain version on one edge case, the codes also
+    at an odd byte offset of their buffer; raises on a mismatch."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import scan_conv as sc
+
+    bf, codes = scan_edge_case(*case)
+    _nw, k, h, _B, _pow2 = case
+    words = torch.from_numpy(bf.words_u32().view(np.int32).copy())
+    want = sc.scan_present_packed_reference(words, int(bf.bits), h, k,
+                                            torch.from_numpy(codes))
+    flat = torch.zeros(codes.size + 1, dtype=torch.uint8, device="cuda")
+    flat[1:] = torch.from_numpy(codes).cuda().flatten()
+    for dev_codes in (torch.from_numpy(codes).cuda(), flat[1:].view(codes.shape)):
+        got = sc.scan_present_packed(words.cuda(), int(bf.bits), h, k, dev_codes)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"scan kernel disagrees with plain on edge {case}")
+
+
+def scan_edges() -> dict:
+    """Every edge case of the scan on the card (scan_edge_check)."""
+    cases = scan_edge_cases()
+    for case in cases:
+        scan_edge_check(case)
+    return {"cases": len(cases), "nw": list(SCAN_EDGE_NW), "equal": True}
 
 
 def mutate(t: str, rng) -> list[str]:
@@ -801,11 +938,122 @@ def bfs_bound(args, out, W: int) -> dict:
     return bound(nbytes, probes)
 
 
-def phase_sealer(truths):
-    import torch
+def bfs_levels(args, out) -> int:
+    """The deepest level any (search, direction) of a dbg_bfs call reached:
+    a host replay of each log from its seed, through the logged masks."""
+    k = args[3]
+    seeds = args[4].cpu().numpy().view(np.uint64)
+    vis, msk, n_vis, _over = (t.cpu().numpy() for t in out)
+    vis = vis.view(np.uint64)
+    kmask, top = (1 << (2 * k)) - 1, 2 * (k - 1)
+    deepest = 0
+    for g in range(vis.shape[0]):
+        for d in range(2):
+            n = min(int(n_vis[g, d]), vis.shape[2])
+            log = dict(zip(vis[g, d, :n].tolist(), msk[g, d, :n].tolist()))
+            frontier = [int(seeds[g, d])] if n else []
+            seen = set(frontier)
+            level = -1
+            while frontier:
+                level += 1
+                nxt = []
+                for u in frontier:
+                    for b in range(4):
+                        if not (log[u] >> b) & 1:
+                            continue
+                        c = ((u << 2) & kmask) | b if d == 0 else (u >> 2) | (b << top)
+                        if c in log and c not in seen:
+                            seen.add(c)
+                            nxt.append(c)
+                frontier = nxt
+            deepest = max(deepest, level)
+    return deepest
 
-    from goldpolish_tpu_torch.fill import sealer
+
+def bfs_row(args, W: int, V: int, label: str, time_plain: bool = True) -> dict:
+    """dbg_bfs against its plain version on one batch at caps (W, V):
+    equal as per-direction (k-mer, mask) sets, overflow flags included;
+    times, and the device time per level of the deepest search."""
     from goldpolish_tpu_torch.ops import dbg_bfs
+
+    got = dbg_bfs.dbg_bfs(*args, W, V)
+    want = dbg_bfs.dbg_bfs_reference(*args, W, V)
+    err = bfs_err(canonical_bfs(got), canonical_bfs(want))
+    levels = bfs_levels(args, want)
+    dev_ms = device_ms(lambda: dbg_bfs.dbg_bfs(*args, W, V), 20)
+    row = {
+        "batch": label, "W": W, "V": V, "searches": len(args[4]), "max_abs_err": err,
+        "overflowed": int(want[3].any(dim=1).sum().item()),
+        "logged": int(want[2].sum().item()), "levels": levels,
+        "ms": time_ms(lambda: dbg_bfs.dbg_bfs(*args, W, V), 20),
+        "device_ms": dev_ms,
+        "device_us_per_level": dev_ms * 1e3 / max(1, levels) if dev_ms else None,
+        "plain_ms": time_ms(lambda: dbg_bfs.dbg_bfs_reference(*args, W, V),
+                            2, warm=1) if time_plain else None,
+        **bfs_bound(args, want, W),
+    }
+    emit(phase="kernel_dbg_bfs", **row)
+    if err:
+        raise AssertionError(f"dbg_bfs kernel disagrees with plain at W={W} ({label})")
+    return row
+
+
+def mixed_bfs_batch(k: int):
+    """A filter and 9 searches (an odd count) that mix what the BFS kernel
+    must tell apart: inactive directions (depth -1), depth 0, thin paths
+    (short and 150 deep), and complete 4-ary trees of depth 2, 3, 4 and 5
+    whose leaves go on as thin paths — frontiers of 16 (more than one pass
+    of 8 vertices, under W = 32), 64 (over W = 32, under 256), 256 (with
+    its tails more than 2,048 vertices: over V) and 1,024 (over W = 256).
+    Returns (filter, [(start, goal, max_d_fwd, max_d_rev)]); every tree
+    hangs after its start k-mer and, mirrored, before its goal k-mer."""
+    from goldpolish_tpu_torch.ops import bloom
+    from goldpolish_tpu_torch.ops import nthash as nt
+
+    rng = np.random.default_rng([SEED, k])
+
+    def dna(n):
+        return "".join("ACGT"[i] for i in rng.integers(0, 4, n))
+
+    bf = bloom.BloomFilter(1 << 20, 4, k)
+
+    def insert(seq):
+        bf.insert(nt.multi_hashes(nt.canonical_hashes(nt.encode(seq), k), k, 4))
+
+    def tree(depth, tail):
+        """(start, goal) k-mers with a complete tree of `depth` after the
+        start and before the goal, each leaf followed by `tail` bases."""
+        start, goal = dna(k), dna(k)
+        for i in range(4 ** depth):
+            x = "".join("ACGT"[(i >> (2 * j)) & 3] for j in range(depth))
+            insert(start + x + dna(tail))
+            insert(dna(tail) + x + goal)
+        return start, goal
+
+    genome = dna(20_000)
+    insert(genome)
+
+    def thin(at):
+        return genome[at : at + k], genome[at + 400 : at + 400 + k]
+
+    searches = [
+        (*thin(1_000), 30, 25),
+        (*thin(3_000), -1, 12),
+        (*thin(5_000), 0, -1),
+        (*tree(2, 6), 4, 4),
+        (*tree(3, 6), 6, 6),
+        (*tree(4, 12), 14, 14),
+        (tree(5, 0)[0], thin(7_000)[1], 5, 40),
+        (*thin(9_000), 150, 150),
+        (*thin(12_000), 3, 60),
+    ]
+    return bf, searches
+
+
+def sealer_inputs(truths):
+    """The sealer phase's input: the truth with a 60-bp lowercase gap every
+    18 kbp as records, 16 MiB filters of the truth's k-mers, the config."""
+    from goldpolish_tpu_torch.fill import sealer
 
     t0 = time.monotonic()
     bfs_by_k = truth_filters(truths)
@@ -821,20 +1069,54 @@ def phase_sealer(truths):
     emit(phase="sealer_inputs", seconds=time.monotonic() - t0,
          filter_bytes=SEALER_FILTER_BYTES, k=K_VALUES, gaps=n_gaps)
     cfg = sealer.SealerConfig(k_values=K_VALUES, flank_length=K_VALUES[0])
-    t = time.monotonic()
-    host_out, host_stats = sealer.seal_records(records, bfs_by_k, cfg)
-    host_s = time.monotonic() - t
+    return records, bfs_by_k, cfg
+
+
+def seal_hybrid(records, bfs_by_k, cfg):
+    """seal_records on the card with the BFS kernel: (records, stats,
+    SearchLog, seconds, dbg_bfs launches, plain-version calls), the counts
+    set to 0 just before the run and read just after."""
+    import torch
+
+    from goldpolish_tpu_torch.fill import sealer
+    from goldpolish_tpu_torch.ops import dbg_bfs
 
     dbg_bfs.dbg_bfs.launches.reset()
     dbg_bfs.dbg_bfs_reference.calls.reset()
     t = time.monotonic()
     with SearchLog() as log:
-        dev_out, dev_stats = sealer.seal_records(records, bfs_by_k, cfg,
-                                                 backend="hybrid", device="cuda")
+        out, stats = sealer.seal_records(records, bfs_by_k, cfg,
+                                         backend="hybrid", device="cuda")
     torch.cuda.synchronize()
-    dev_s = time.monotonic() - t
-    launches = dbg_bfs.dbg_bfs.launches.value
-    plain = dbg_bfs.dbg_bfs_reference.calls.value
+    return (out, stats, log, time.monotonic() - t, dbg_bfs.dbg_bfs.launches.value,
+            dbg_bfs.dbg_bfs_reference.calls.value)
+
+
+def bfs_rows(bfs_by_k, searches, time_plain: bool = True) -> list[dict]:
+    """The BFS kernel against its plain version at both run tiers (W = 32
+    and 256): on the first 256 k = 32 searches of the sealer run, then on
+    the mixed batch; the first rows are the sealer run's."""
+    from goldpolish_tpu_torch.ops import dbg_bfs
+
+    bfs = dbg_bfs.DeviceBFS(bfs_by_k[32], 32, device="cuda")
+    args = bfs.inputs(searches[:256])
+    rows = [bfs_row(args, W, bfs.V, "sealer", time_plain) for W in (bfs.W, bfs.W2)]
+    bf, mixed = mixed_bfs_batch(32)
+    margs = dbg_bfs.DeviceBFS(bf, 32, device="cuda").inputs(mixed)
+    mrows = [bfs_row(margs, W, bfs.V, "mixed", time_plain) for W in (bfs.W, bfs.W2)]
+    if [r["overflowed"] for r in mrows] != [3, 2]:
+        raise AssertionError(f"the mixed batch's overflows: {mrows}")
+    return rows + mrows
+
+
+def phase_sealer(truths):
+    from goldpolish_tpu_torch.fill import sealer
+
+    records, bfs_by_k, cfg = sealer_inputs(truths)
+    t = time.monotonic()
+    host_out, host_stats = sealer.seal_records(records, bfs_by_k, cfg)
+    host_s = time.monotonic() - t
+    dev_out, dev_stats, log, dev_s, launches, plain = seal_hybrid(records, bfs_by_k, cfg)
     n_searches = sum(len(v) for v in log.searches.values())
     truth = dict(truths)
     restored = sum(1 for h, s in dev_out if s.upper() == truth[h.split()[0]])
@@ -853,31 +1135,8 @@ def phase_sealer(truths):
         raise AssertionError("the hybrid sealer launched no dbg_bfs kernel")
     if plain:
         raise AssertionError("the plain BFS ran during the CUDA sealer run")
-
-    # the kernel against its plain version on the first 256 k = 32 searches,
-    # at both run tiers (these launches are not counted above)
-    bfs = dbg_bfs.DeviceBFS(bfs_by_k[32], 32, device="cuda")
-    args = bfs.inputs(log.searches[32][:256])
-    rows = []
-    for W in (bfs.W, bfs.W2):
-        got = dbg_bfs.dbg_bfs(*args, W, bfs.V)
-        want = dbg_bfs.dbg_bfs_reference(*args, W, bfs.V)
-        err = bfs_err(canonical_bfs(got), canonical_bfs(want))
-        row = {
-            "W": W, "V": bfs.V, "searches": len(args[4]), "max_abs_err": err,
-            "overflowed": int(want[3].any(dim=1).sum().item()),
-            "logged": int(want[2].sum().item()),
-            "ms": time_ms(lambda: dbg_bfs.dbg_bfs(*args, W, bfs.V), 20),
-            "device_ms": device_ms(lambda: dbg_bfs.dbg_bfs(*args, W, bfs.V), 20),
-            "plain_ms": time_ms(lambda: dbg_bfs.dbg_bfs_reference(*args, W, bfs.V),
-                                2, warm=1),
-            **bfs_bound(args, want, W),
-        }
-        rows.append(row)
-        emit(phase="kernel_dbg_bfs", **row)
-        if err:
-            raise AssertionError(f"dbg_bfs kernel disagrees with plain at W={W}")
-    return launches, rows
+    # the kernel against its plain version (these launches are not counted above)
+    return launches, bfs_rows(bfs_by_k, log.searches[32])
 
 
 def main() -> int:
@@ -909,7 +1168,7 @@ def main() -> int:
     native.lib()
     native_s = time.monotonic() - t
     ptxas = [ln.strip() for ln in cuda_build.build_log.splitlines()
-             if "Used" in ln or "Compiling entry" in ln]
+             if "Used" in ln or "Compiling entry" in ln or "spill" in ln]
     emit(phase="build", kernels_s=kernels_s, native_s=native_s, ptxas=ptxas)
 
     rng = np.random.default_rng(SEED)

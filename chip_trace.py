@@ -3,23 +3,29 @@
 
 Run from the repository root:
 
-    python3 chip_trace.py [--root DIR] [--runs N] [--no-trace]
+    python3 chip_trace.py [--root DIR] [--runs N] [--no-trace] [--kernels]
 
 It polishes chip_smoke.py's main-path input (the seeded 4.64 Mbp gapped
-draft, its reads and PAF, `-b 1`, k = 32, 28, 24, 20, sealer on) with two
-arms of the CLI: `default` (hybrid with the fused eval, host fill) and
+draft, its reads and PAF, `-b 1`, k = 32, 28, 24, 20, sealer on) with three
+arms of the CLI: `default` (hybrid with the fused eval, host fill),
 `fill_overlap` (the same with --fill-overlap: the device fill claims
-batches from the tail), both with GPTPU_FORCE_DEVICE_SCAN=1 and an explicit
-`--backend hybrid`.  One warm-up run of each, then N runs of each in
-alternated order (default, overlap / overlap, default / ...), one JSON line
-per run (wall seconds, Bloom-fill seconds, ntEdit sum, device-filled
-batches, kernel launch counts), then one torch.profiler trace of each arm
-(CPU and CUDA activities): the device's busy time (the union of the
-intervals of every CUDA event: kernels, copies, memsets), its idle share
-of the traced run, and device time by event name (largest first).
+batches from the tail) and `hybrid_eval_off` (GPTPU_DEVICE_EVAL=0: the
+dense scan, kernel 2, alone), all with GPTPU_FORCE_DEVICE_SCAN=1 and an
+explicit `--backend hybrid`.  One warm-up run of each, then N runs of each
+in alternated order (forward / backward / ...), one JSON line per run (wall
+seconds, Bloom-fill seconds, ntEdit sum, device-filled batches, kernel
+launch counts), then one torch.profiler trace of each arm (CPU and CUDA
+activities): the device's busy time (the union of the intervals of every
+CUDA event: kernels, copies, memsets), its idle share of the traced run,
+and device time by event name (largest first).  Last, one traced run of the
+smoke's sealer phase with the hybrid backend (kernel 3 by name).
 
+--kernels times kernels 2 and 3 alone instead (chip_smoke.scan_rows and
+bfs_rows: every k on both filters, both BFS tiers on the sealer run's
+searches and on the mixed batch; each equal to its plain version first).
 --root imports goldpolish_tpu_torch from another checkout (for example an
-unpacked parent commit), so two commits can be compared within one call.
+unpacked parent commit), so two commits can be compared within one call:
+run it once per checkout, in turns.
 Imports nothing of JAX; needs CUDA (exits 2 without it).
 """
 
@@ -34,7 +40,9 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-ARMS = {"default": (), "fill_overlap": ("--fill-overlap",)}
+# arm -> (GPTPU_DEVICE_EVAL, extra CLI arguments)
+ARMS = {"default": (None, ()), "fill_overlap": (None, ("--fill-overlap",)),
+        "hybrid_eval_off": ("0", ())}
 
 
 def device_profile(events) -> dict:
@@ -63,6 +71,8 @@ def main() -> int:
                     help="checkout whose goldpolish_tpu_torch to run")
     ap.add_argument("--runs", type=int, default=4, help="timed runs of each arm")
     ap.add_argument("--no-trace", action="store_true")
+    ap.add_argument("--kernels", action="store_true",
+                    help="time kernels 2 and 3 alone, no CLI run")
     args = ap.parse_args()
     import torch
 
@@ -86,11 +96,21 @@ def main() -> int:
     work = os.path.join(HERE, "goldpolish_tpu_torch", "build", f"trace_{os.getpid()}")
     os.makedirs(work)
     try:
-        inp = cs.prepare_main(np.random.default_rng(cs.SEED), work)
+        rng = np.random.default_rng(cs.SEED)
+        if args.kernels:
+            p75 = torch.from_numpy(cs.random_words(rng, cs.FILTER_BITS)).cuda()
+            cs.scan_rows(rng, p75, time_plain=False)
+        inp = cs.prepare_main(rng, work)
+        if args.kernels:
+            sealer_in = cs.sealer_inputs(inp["truths"])
+            log = cs.seal_hybrid(*sealer_in)[2]
+            cs.bfs_rows(sealer_in[1], log.searches[32], time_plain=False)
+            return 0
 
         def run(arm: str, i: int) -> dict:
-            env = {**cs.FORCE, "GPTPU_DEVICE_EVAL": None}
-            line = cs.run_arm(inp, f"{arm}_{i}", env, "--backend", "hybrid", *ARMS[arm])
+            eval_env, extra = ARMS[arm]
+            env = {**cs.FORCE, "GPTPU_DEVICE_EVAL": eval_env}
+            line = cs.run_arm(inp, f"{arm}_{i}", env, "--backend", "hybrid", *extra)
             shutil.rmtree(os.path.join(work, f"ws_{arm}_{i}"), ignore_errors=True)
             return line
 
@@ -115,6 +135,15 @@ def main() -> int:
             cs.emit(phase=f"trace_{arm}", traced_wall_s=wall,
                     idle_share=1 - dev["device_busy_ms"] / (wall * 1e3),
                     device_filled_batches=line["device_filled_batches"], **dev)
+        sealer_in = cs.sealer_inputs(inp["truths"])
+        cs.seal_hybrid(*sealer_in)  # warm-up: the filters' first upload
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _out, stats, log, wall, launches, _plain = cs.seal_hybrid(*sealer_in)
+        dev = device_profile(cs.device_events(prof))
+        cs.emit(phase="trace_sealer_hybrid", traced_wall_s=wall,
+                idle_share=1 - dev["device_busy_ms"] / (wall * 1e3),
+                gaps_closed=stats["gaps_closed"], dbg_bfs_launches=launches,
+                searches=sum(len(v) for v in log.searches.values()), **dev)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0

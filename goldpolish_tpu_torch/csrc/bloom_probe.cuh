@@ -1,6 +1,6 @@
 // The one Bloom-filter bit test that every device probe in this package
-// uses: kernel 1 (bloom_probe.cu) and the fused dense scan (scan_conv.cu)
-// both include it, so the probe's semantics exist once.
+// uses: kernel 1 (bloom_probe.cu) includes it, and so does nthash_roll.cuh,
+// through which kernels 2-5 probe, so the bit layout exists once.
 //
 // Replaces: the word select + bit test of every Pallas probe kernel in
 // goldpolish_tpu/ops/bloom_pallas.py (_probe_kernel :36, _probe_mxu_kernel
@@ -15,7 +15,18 @@
 
 #include <cstdint>
 
+// The word that holds bit `bit`, and the bit of a loaded word: apart, so a
+// caller can start several loads before it tests the first.
+__device__ __forceinline__ uint32_t gp_bloom_word(const uint32_t* __restrict__ words,
+                                                  uint64_t bit) {
+  return __ldg(words + (bit >> 5));
+}
+
+__device__ __forceinline__ bool gp_bloom_bit(uint32_t word, uint64_t bit) {
+  return (word >> (uint32_t)(bit & 31u)) & 1u;
+}
+
 __device__ __forceinline__ bool gp_bloom_test(const uint32_t* __restrict__ words,
                                               uint64_t bit) {
-  return (__ldg(words + (bit >> 5)) >> (uint32_t)(bit & 31u)) & 1u;
+  return gp_bloom_bit(gp_bloom_word(words, bit), bit);
 }

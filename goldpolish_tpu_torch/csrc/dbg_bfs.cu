@@ -23,7 +23,7 @@
 // per-level argsort and a 3-bit shadow byte set (:134-173, :210-230) because
 // XLA has no hash table.  The shadow set's false positives drop vertices
 // from the log (the host then re-runs the gap).  Here each (search,
-// direction) is one CTA with an exact visited set in shared memory: open
+// direction) is one warp with an exact visited set in shared memory: open
 // addressing over T = 2 * (V + 4W) u64 slots, inserted with atomicCAS, so
 // the first inserter of a k-mer wins and dedup within and across levels is
 // exact.  At most V + 4W keys ever enter (the log is capped at V before a
@@ -32,72 +32,84 @@
 // The plain torch version is goldpolish_tpu_torch/ops/dbg_bfs.py:
 // dbg_bfs_reference.
 //
-// What bounds it on the H100: each level is a chain of dependent steps —
-// roll, h random 4-byte Bloom loads from a filter that lives in L2 (4-16
-// MiB), a shared-memory insert, then a block barrier before the next level
-// can start.  Konnector searches are thin (1-2 vertices wide over hundreds
-// of levels), so most of a CTA's threads idle and the time is L2 latency
-// times depth, not bandwidth or arithmetic.
+// What bounds it on the H100: latency.  Konnector searches are thin (1-2
+// vertices wide over a hundred or more levels), and one level is a chain of
+// dependent steps — read the frontier, roll, probe the filter (random
+// 4-byte loads from L2, 4-16 MiB), insert into the visited set, publish the
+// next frontier.  The floor is depth x one L2 latency; bandwidth does not
+// enter (the byte bound of 256 searches is ~5 us).  The first form of this
+// kernel paid up to h L2 latencies in turn (the probe stopped at the first
+// clear bit) and three block barriers of 128 threads per level, with 120
+// or more of the threads idle.  In this form a level takes ~0.7 us on the
+// H100, and the wait for the filter words is the smaller part of it: the
+// rest is the warp's own chain of dependent instructions (64-bit rotations
+// and multiplies on 32-bit units, the shared-memory CAS).
 //
-// What the design does about it: the whole search runs in one launch (no
-// host round trip per level, the cost that made the lockstep device DBG
-// slow), every search and direction of the batch runs in parallel as its
-// own CTA (2G CTAs of 128 threads), a thread owns one (vertex, base) child
-// so the 4 children of a vertex are 4 neighbouring lanes whose presence
-// bits one warp ballot gathers into the mask, and the probe stops at the
-// first clear bit.  Packing several thin searches into one CTA, and
-// warp-synchronous levels without block barriers, are left for later.
+// What the design does about it:
+//  * one warp per (search, direction), kept for the whole search; a CTA is
+//    just up to 3 such warps that share nothing, so the level loop has no
+//    __syncthreads() at all: `__ballot_sync` gathers the masks and compacts
+//    the new children (no shared counter), `__syncwarp()` publishes the
+//    next frontier, and the frontier is double-buffered in the warp's own
+//    slice of dynamic shared memory;
+//  * a lane owns one (vertex, base) child, so a pass covers 8 frontier
+//    vertices; a frontier wider than 8 (up to the cap W) is walked in
+//    passes of 8 by the same warp.  That keeps the result exact up to W in
+//    one launch with one code path, instead of a second block-wide kernel
+//    for flagged searches: a wide level costs ceil(nf / 8) passes, each one
+//    L2 latency, and wide levels are rare on Konnector's graphs;
+//  * the h probe loads of a child are in flight at once (gp_probe4_load),
+//    so a level waits for one L2 latency, not up to h; the kernel is
+//    instantiated for power-of-two filters apart, so that path is
+//    straight-line code (no load is scheduled across the branches of the
+//    64-bit modulo);
+//  * whatever does not need the probe's answer runs while the loads are in
+//    flight: the child's k-mer, its slot in the visited set, and its half
+//    of the next level's roll.  A frontier vertex is kept as (k-mer, A, B)
+//    with A and B its ntHash state already rotated and XORed with the
+//    terms of its own first or last base, so a child's hash is one XOR per
+//    strand with a constant of its lane (rotation distributes over XOR):
+//      successors    A = srol(fh) ^ FK[first base], B = sror(rh ^ R[first base])
+//                    child b: fh' = A ^ F[b],        rh' = B ^ sror(RK[b])
+//      predecessors  A = sror(fh ^ F[last base]),   B = srol(rh) ^ RK[last base]
+//                    child b: fh' = A ^ sror(FK[b]), rh' = B ^ R[b]
+//  * the visited set is sized to the search: at most min(V + 4W, 1 + 4W *
+//    max_d) keys can enter, so a shallow search clears (16-byte stores, by
+//    its own warp) and hashes into a few slots, a deep one into T = 2 *
+//    (V + 4W); clearing all 34 KB at W = 32 is 68 stores per lane, well
+//    under one level's latency x the >= 100 levels of a search that needs
+//    them.  The load stays at or below one half and the first inserter of
+//    a k-mer still wins (atomicCAS).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
-#include "bloom_probe.cuh"
+#include "nthash_roll.cuh"
 
 namespace {
 
-constexpr int kBfsThreads = 128;  // a multiple of 32: a child's 4 lanes share a warp
+// (search, direction) pairs per CTA, at most: 3 fills an SM's shared memory
+// at both of DeviceBFS's tiers (2 CTAs of 3 at W = 32, 1 CTA of 3 at W = 256)
+constexpr int kMaxWarps = 3;
+constexpr int kGroup = 8;     // frontier vertices per pass: 32 children, one per lane
+constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned long long kEmpty = ~0ull;
-constexpr uint64_t kMask31 = (1ull << 31) - 1;
-constexpr uint64_t kMask33 = (1ull << 33) - 1;
 
-// ntHash's split rotation (31-bit high field, 33-bit low field) by one.
-__device__ __forceinline__ uint64_t srol1(uint64_t x) {
-  const uint64_t hi = x >> 33, lo = x & kMask33;
-  return ((((hi << 1) | (hi >> 30)) & kMask31) << 33) |
-         (((lo << 1) | (lo >> 32)) & kMask33);
-}
-
-__device__ __forceinline__ uint64_t sror1(uint64_t x) {
-  const uint64_t hi = x >> 33, lo = x & kMask33;
-  return ((((hi >> 1) | (hi << 30)) & kMask31) << 33) |
-         (((lo >> 1) | (lo << 32)) & kMask33);
-}
-
-// The h-hash Bloom test of a canonical hash: hash 0 is `base`, hash i the
-// ntHash extra hash t ^ (t >> 27), t = base * (i ^ k * MULTI_SEED).
-__device__ __forceinline__ bool bloom_has(const uint32_t* __restrict__ words,
-                                          uint64_t bits, bool pow2, int h,
-                                          uint64_t kmul, uint64_t base) {
-  for (int i = 0; i < h; ++i) {
-    uint64_t hv = base;
-    if (i) {
-      const uint64_t t = base * ((uint64_t)i ^ kmul);
-      hv = t ^ (t >> 27);
-    }
-    if (!gp_bloom_test(words, pow2 ? (hv & (bits - 1)) : (hv % bits))) return false;
-  }
-  return true;
-}
-
-// Insert `key` into the visited set; true when this thread inserted it.
-__device__ __forceinline__ bool visit(unsigned long long* table, uint32_t T,
-                                      int* all_ones, uint64_t key) {
-  if (key == kEmpty) return atomicExch(all_ones, 1) == 0;
+// The slot of the visited set (T slots) where the probing for `key` starts.
+__device__ __forceinline__ uint32_t visit_slot(uint64_t key, uint32_t T) {
   uint64_t x = key;
   x ^= x >> 33;
   x *= 0xff51afd7ed558ccdull;
   x ^= x >> 33;
-  uint32_t p = (uint32_t)((x >> 32) % T);
+  return (uint32_t)(((x >> 32) * T) >> 32);
+}
+
+// Insert `key` into the visited set from slot p = visit_slot(key, T) on;
+// true when this thread inserted it.  The all-T 32-mer equals the
+// empty-slot value: a flag.
+__device__ __forceinline__ bool visit(unsigned long long* table, uint32_t T,
+                                      int* all_ones, uint64_t key, uint32_t p) {
+  if (key == kEmpty) return atomicExch(all_ones, 1) == 0;
   while (true) {
     const unsigned long long old = atomicCAS(table + p, kEmpty, key);
     if (old == kEmpty) return true;
@@ -106,121 +118,148 @@ __device__ __forceinline__ bool visit(unsigned long long* table, uint32_t T,
   }
 }
 
-__global__ void __launch_bounds__(kBfsThreads)
-gp_dbg_bfs_kernel(const uint32_t* __restrict__ words, uint64_t bits, int pow2,
+// A vertex's half of its children's roll (see the header): (fh, rh) of
+// k-mer u -> (A, B).  tab = F[4] R[4] FK[4] RK[4].
+__device__ __forceinline__ void half_roll(const uint64_t* tab, int dirn, int top, uint64_t u,
+                                          uint64_t fh, uint64_t rh, uint64_t& A,
+                                          uint64_t& B) {
+  if (dirn == 0) {
+    const int out = (int)((u >> top) & 3);
+    A = gp_srol_n(fh, 1) ^ tab[8 + out];
+    B = gp_sror1(rh ^ tab[4 + out]);
+  } else {
+    const int in = (int)(u & 3);
+    A = gp_sror1(fh ^ tab[in]);
+    B = gp_srol_n(rh, 1) ^ tab[12 + in];
+  }
+}
+
+template <bool kPow2>
+__global__ void __launch_bounds__(32 * kMaxWarps)
+gp_dbg_bfs_kernel(const uint32_t* __restrict__ words, uint64_t bits,
                   int h, int k, uint64_t kmul,
                   const uint64_t* __restrict__ roll_tab,
                   const uint64_t* __restrict__ seed_k,
                   const uint64_t* __restrict__ seed_fh,
                   const uint64_t* __restrict__ seed_rh,
-                  const int32_t* __restrict__ max_d, int W, int V, uint32_t T,
-                  uint64_t* __restrict__ vis_k, uint8_t* __restrict__ vis_m,
-                  int32_t* __restrict__ n_vis_out, uint8_t* __restrict__ over_out) {
-  extern __shared__ unsigned long long smem[];
-  unsigned long long* table = smem;               // [T]
-  uint64_t* cur = (uint64_t*)(smem + T);          // [3W]: k-mer, fh, rh
-  uint64_t* nxt = cur + 3 * W;                    // [3W]
-  __shared__ uint64_t s_roll[16];                 // F[4] R[4] FK[4] RK[4]
-  __shared__ int s_nf, s_new, s_all_ones;
+                  const int32_t* __restrict__ max_d, int n_pairs, int W, int V,
+                  uint32_t T, uint64_t* __restrict__ vis_k,
+                  uint8_t* __restrict__ vis_m, int32_t* __restrict__ n_vis_out,
+                  uint8_t* __restrict__ over_out) {
+  extern __shared__ __align__(16) unsigned long long smem[];
+  __shared__ uint64_t s_roll[kMaxWarps][16];  // F[4] R[4] FK[4] RK[4], per warp
+  __shared__ int s_all_ones[kMaxWarps];
 
-  const int lane = blockIdx.x;  // g * 2 + d
-  const int dirn = lane & 1;
-  const int md = max_d[lane];
-  const int tid = threadIdx.x;
-  for (uint32_t i = tid; i < T; i += blockDim.x) table[i] = kEmpty;
-  if (tid < 16) s_roll[tid] = roll_tab[tid];
-  if (tid == 0) {
-    s_nf = md >= 0 ? 1 : 0;
-    s_new = 0;
-    s_all_ones = 0;
-    cur[0] = seed_k[lane];
-    cur[W] = seed_fh[lane];
-    cur[2 * W] = seed_rh[lane];
+  const int warp = threadIdx.x >> 5, ln = threadIdx.x & 31;
+  const int pair = blockIdx.x * (blockDim.x >> 5) + warp;  // g * 2 + d
+  if (pair >= n_pairs) return;  // the whole warp leaves together
+  const int dirn = pair & 1;
+  const int md = max_d[pair];
+  if (md < 0) {  // inactive: nothing to clear, log or search
+    if (ln == 0) {
+      n_vis_out[pair] = 0;
+      over_out[pair] = 0;
+    }
+    return;
   }
-  __syncthreads();
-  if (tid == 0) visit(table, T, &s_all_ones, seed_k[lane]);
-  __syncthreads();
-
-  const uint64_t* F = s_roll;
-  const uint64_t* R = s_roll + 4;
-  const uint64_t* FK = s_roll + 8;
-  const uint64_t* RK = s_roll + 12;
-  const uint64_t kmask = k < 32 ? (1ull << (2 * k)) - 1 : ~0ull;
+  // this warp's slice: the visited table, then two frontiers of (k-mer, A, B)
+  unsigned long long* table = smem + (size_t)warp * (T + 6 * (size_t)W);
+  uint64_t* cur = (uint64_t*)(table + T);  // [3W]: k-mer, A, B
+  uint64_t* nxt = cur + 3 * W;             // [3W]
+  int* all_ones = &s_all_ones[warp];
+  uint64_t* tab = s_roll[warp];
   const int top = 2 * (k - 1);
-  const bool is_pow2 = pow2 != 0;
-  uint64_t* log_k = vis_k + (int64_t)lane * V;
-  uint8_t* log_m = vis_m + (int64_t)lane * V;
-  int n_vis = 0;
+
+  // no more than 1 + 4W * md keys can enter (4 children of at most W
+  // vertices at each of md growing levels), nor more than V + 4W
+  uint32_t Tn = T;
+  if (2 * (1 + 4 * (int64_t)W * md) < (int64_t)T)
+    Tn = (uint32_t)(2 * (1 + 4 * (int64_t)W * md));
+  const uint4 empty4 = make_uint4(~0u, ~0u, ~0u, ~0u);
+  for (uint32_t i = ln; i < Tn / 2; i += 32) ((uint4*)table)[i] = empty4;
+  if (ln < 16) tab[ln] = roll_tab[ln];
+  __syncwarp();
+  if (ln == 0) {
+    *all_ones = 0;
+    const uint64_t u = seed_k[pair];
+    cur[0] = u;
+    half_roll(tab, dirn, top, u, seed_fh[pair], seed_rh[pair], cur[W], cur[2 * W]);
+    visit(table, Tn, all_ones, u, visit_slot(u, Tn));
+  }
+  __syncwarp();
+
+  const uint64_t kmask = k < 32 ? (1ull << (2 * k)) - 1 : ~0ull;
+  const uint64_t b = (uint64_t)(ln & 3);  // this lane's base
+  // this lane's constants of a child's hash: fh' = A ^ X, rh' = B ^ Y
+  const uint64_t X = dirn == 0 ? tab[b] : gp_sror1(tab[8 + b]);
+  const uint64_t Y = dirn == 0 ? gp_sror1(tab[12 + b]) : tab[4 + b];
+  uint64_t* log_k = vis_k + (int64_t)pair * V;
+  uint8_t* log_m = vis_m + (int64_t)pair * V;
+  int n_vis = 0, nf = 1;
   bool over = false;
 
-  for (int level = 0; level <= md; ++level) {
-    const int nf = s_nf;
-    if (nf == 0) break;
+  for (int level = 0; level <= md && nf > 0; ++level) {
     const bool grow = level < md && n_vis + nf <= V;
-    for (int base = 0; base < 4 * nf; base += blockDim.x) {
-      const int c = base + tid;
-      const bool live = c < 4 * nf;
-      const int i = c >> 2;
-      const uint64_t b = (uint64_t)(c & 3);
-      uint64_t ck = 0, cfh = 0, crh = 0;
+    int n_new = 0;
+    for (int v0 = 0; v0 < nf; v0 += kGroup) {
+      const int i = v0 + (ln >> 2);
+      const bool live = i < nf;
+      uint64_t u = 0, ck = 0, cA = 0, cB = 0;
+      uint32_t slot = 0;
       bool pres = false;
       if (live) {
-        const uint64_t u = cur[i], fh = cur[W + i], rh = cur[2 * W + i];
-        if (dirn == 0) {
-          const int out = (int)((u >> top) & 3);
-          ck = ((u << 2) & kmask) | b;
-          cfh = srol1(fh) ^ F[b] ^ FK[out];
-          crh = sror1(rh ^ RK[b] ^ R[out]);
-        } else {
-          const int in = (int)(u & 3);
-          ck = (u >> 2) | (b << top);
-          cfh = sror1(fh ^ F[in] ^ FK[b]);
-          crh = srol1(rh) ^ RK[in] ^ R[b];
-        }
-        pres = bloom_has(words, bits, is_pow2, h, kmul, cfh + crh);
+        u = cur[i];
+        const uint64_t cfh = cur[W + i] ^ X, crh = cur[2 * W + i] ^ Y;
+        const GpProbe4 probe = gp_probe4_load<kPow2>(words, bits, h, kmul, cfh + crh, 0);
+        // while the loads are in flight: the child's k-mer, its slot in
+        // the visited set and its half of the next level's roll
+        ck = dirn == 0 ? (((u << 2) & kmask) | b) : ((u >> 2) | (b << top));
+        slot = visit_slot(ck, Tn);
+        half_roll(tab, dirn, top, ck, cfh, crh, cA, cB);
+        pres = gp_probe4_all(probe);
+        for (int i0 = 4; i0 < h && pres; i0 += 4)
+          pres = gp_probe4_all(gp_probe4_load<kPow2>(words, bits, h, kmul, cfh + crh, i0));
       }
-      // the 4 children of vertex i are lanes 4i..4i+3 of one warp
-      const unsigned ballot = __ballot_sync(0xffffffffu, pres);
+      // the 4 children of vertex i are lanes 4(i - v0) .. + 3
+      const unsigned ballot = __ballot_sync(kFull, pres);
       if (live && b == 0 && n_vis + i < V) {
-        log_k[n_vis + i] = cur[i];
-        log_m[n_vis + i] = (uint8_t)((ballot >> (tid & 28)) & 0xFu);
+        log_k[n_vis + i] = u;
+        log_m[n_vis + i] = (uint8_t)((ballot >> (ln & 28)) & 0xFu);
       }
-      if (pres && grow && visit(table, T, &s_all_ones, ck)) {
-        const int slot = atomicAdd(&s_new, 1);
-        if (slot < W) {
-          nxt[slot] = ck;
-          nxt[W + slot] = cfh;
-          nxt[2 * W + slot] = crh;
+      const bool fresh = pres && grow && visit(table, Tn, all_ones, ck, slot);
+      const unsigned fm = __ballot_sync(kFull, fresh);
+      if (fresh) {
+        const int at = n_new + __popc(fm & ((1u << ln) - 1u));
+        if (at < W) {
+          nxt[at] = ck;
+          nxt[W + at] = cA;
+          nxt[2 * W + at] = cB;
         }
       }
+      n_new += __popc(fm);
     }
-    __syncthreads();  // every child of this level is inserted and counted
-    const int n_new = s_new;
     n_vis += nf;
     if (n_vis > V || n_new > W) {
       over = true;
       break;
     }
-    if (level == md) break;
     uint64_t* t = cur;
     cur = nxt;
     nxt = t;
-    __syncthreads();  // every thread has read s_new and s_nf
-    if (tid == 0) {
-      s_nf = n_new;
-      s_new = 0;
-    }
-    __syncthreads();
+    nf = n_new;
+    __syncwarp();  // the next frontier is written; this one is read
   }
-  if (tid == 0) {
-    n_vis_out[lane] = n_vis;
-    over_out[lane] = over ? 1 : 0;
+  if (ln == 0) {
+    n_vis_out[pair] = n_vis;
+    over_out[pair] = over ? 1 : 0;
   }
 }
 
 }  // namespace
 
-// Dynamic shared memory of one CTA for frontier cap W and log cap V.
+// Dynamic shared memory one (search, direction) warp needs for frontier cap
+// W and log cap V (the visited table and the two frontiers); a CTA holds up
+// to kMaxWarps such warps.
 extern "C" int64_t gp_dbg_bfs_smem_bytes(int W, int V) {
   const int64_t T = 2 * ((int64_t)V + 4 * (int64_t)W);
   return 8 * (T + 6 * (int64_t)W);
@@ -240,20 +279,27 @@ extern "C" int gp_dbg_bfs(const void* words, uint64_t bits, int h, int k,
   if (G <= 0) return 0;
   if (k < 1 || k > 32 || h < 1 || bits == 0 || W < 1 || V < 1 || 2 * G > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
-  const int64_t smem = gp_dbg_bfs_smem_bytes(W, V);
+  const int64_t per_pair = gp_dbg_bfs_smem_bytes(W, V);
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (smem + 1024 > optin) return (int)cudaErrorInvalidValue;
+  if (per_pair + 1024 > optin) return (int)cudaErrorInvalidValue;
+  // as many warps per CTA as the shared memory holds (no warp waits for
+  // another, so the CTA's size changes nothing but the packing)
+  int warps = (int)((optin - 1024) / per_pair);
+  warps = warps < kMaxWarps ? warps : kMaxWarps;
+  const int64_t smem = warps * per_pair;
+  auto kernel = (bits & (bits - 1)) == 0 ? gp_dbg_bfs_kernel<true> : gp_dbg_bfs_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      gp_dbg_bfs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const uint32_t T = (uint32_t)(2 * ((int64_t)V + 4 * (int64_t)W));
-  gp_dbg_bfs_kernel<<<(unsigned)(2 * G), kBfsThreads, (size_t)smem,
-                      (cudaStream_t)stream>>>(
-      (const uint32_t*)words, bits, (bits & (bits - 1)) == 0, h, k, kmul,
-      (const uint64_t*)roll_tab, (const uint64_t*)seed_k, (const uint64_t*)seed_fh,
-      (const uint64_t*)seed_rh, (const int32_t*)max_d, W, V, T, (uint64_t*)vis_k,
-      (uint8_t*)vis_m, (int32_t*)n_vis, (uint8_t*)over);
+  const int n_pairs = (int)(2 * G);
+  kernel<<<(unsigned)((n_pairs + warps - 1) / warps), 32 * warps, (size_t)smem,
+           (cudaStream_t)stream>>>(
+      (const uint32_t*)words, bits, h, k, kmul, (const uint64_t*)roll_tab,
+      (const uint64_t*)seed_k, (const uint64_t*)seed_fh, (const uint64_t*)seed_rh,
+      (const int32_t*)max_d, n_pairs, W, V, T, (uint64_t*)vis_k, (uint8_t*)vis_m,
+      (int32_t*)n_vis, (uint8_t*)over);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,8 @@
 
 #include <cstdint>
 
+#include "bloom_probe.cuh"
+
 constexpr int kGpMaxK = 64;
 constexpr int kGpNoClass = 4;  // forward class of bytes without a seed
 
@@ -40,6 +42,47 @@ __device__ __forceinline__ uint64_t gp_nth_hash(uint64_t base, int i, uint64_t k
   if (!i) return base;
   const uint64_t t = base * ((uint64_t)i ^ kmul);
   return t ^ (t >> 27);
+}
+
+// The bit index of a hash value.  kPow2 is a template argument so that the
+// power-of-two path is straight-line code: the 64-bit modulo is a routine
+// with branches, and a load cannot be scheduled across them.
+template <bool kPow2>
+__device__ __forceinline__ uint64_t gp_bit_index(uint64_t hv, uint64_t bits) {
+  return kPow2 ? (hv & (bits - 1)) : (hv % bits);
+}
+
+// Four hashes of the h-hash Bloom test, latency first: gp_probe4_load
+// computes the bit indices of hashes i0 .. i0 + 3 of a canonical base hash
+// and starts their four word loads; gp_probe4_all tests them.  The loads
+// are in flight together, so a present key waits for one L2 latency, not
+// four in turn, and whatever the caller computes between the two calls
+// runs while it waits (a thread's instructions go in order: a test right
+// after its load would stall the thread there).  Past h the slots repeat
+// hash i0, whose word is then in L1.
+struct GpProbe4 {
+  uint64_t bit[4];
+  uint32_t word[4];
+};
+
+template <bool kPow2>
+__device__ __forceinline__ GpProbe4 gp_probe4_load(const uint32_t* __restrict__ words,
+                                                    uint64_t bits, int h, uint64_t kmul,
+                                                    uint64_t base, int i0) {
+  GpProbe4 p;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    p.bit[j] = gp_bit_index<kPow2>(gp_nth_hash(base, i0 + j < h ? i0 + j : i0, kmul), bits);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) p.word[j] = gp_bloom_word(words, p.bit[j]);
+  return p;
+}
+
+__device__ __forceinline__ bool gp_probe4_all(const GpProbe4& p) {
+  bool all = true;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) all &= gp_bloom_bit(p.word[j], p.bit[j]);
+  return all;
 }
 
 // The direct-hash tables, staged in shared memory.

@@ -7,7 +7,9 @@ compared exactly; the mask replay and seal_records(backend="hybrid") must
 equal the host search field by field.  The CUDA case needs the card and
 skips here; the JAX package is imported only by the tests that compare
 with it, so the CUDA case also runs where jax is not installed
-(`pytest --noconftest -m cuda`)."""
+(`pytest --noconftest -m cuda`).  The mixed batch (inactive, depth 0, thin,
+wide and overflowing searches in one call) is chip_smoke.mixed_bfs_batch,
+the batch the smoke run gives the kernel on the card."""
 
 import dataclasses
 from collections import deque
@@ -16,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from goldpolish_tpu_torch.fill import konnector, sealer
 from goldpolish_tpu_torch.ops import bloom, dbg_bfs, u64
 from goldpolish_tpu_torch.ops import nthash as nt
@@ -177,6 +180,79 @@ def test_all_t_32mer_is_logged():
     assert {v: m for v, m in got.items() if v != (1 << 64) - 1} == jgot
 
 
+def _ref_levels(dbg, seed_kmer: str, max_depth: int, forward: bool):
+    """Host BFS by levels, with no caps: ({packed k-mer: mask}, the frontier
+    size of every level 0..max_depth that has a vertex)."""
+    masks, sizes = {}, []
+    seen = {seed_kmer}
+    frontier = [seed_kmer]
+    for level in range(max_depth + 1):
+        if not frontier:
+            break
+        sizes.append(len(frontier))
+        nxt = []
+        for u in frontier:
+            nbrs = dbg.successors(u) if forward else dbg.predecessors(u)
+            masks[pack_kmer(u)] = sum(
+                1 << "ACGT".index(v[-1] if forward else v[0]) for v in nbrs)
+            if level < max_depth:
+                for v in nbrs:
+                    if v not in seen:
+                        seen.add(v)
+                        nxt.append(v)
+        frontier = nxt
+    return masks, sizes
+
+
+def _expect_over(sizes, max_depth: int, W: int, V: int) -> bool:
+    """dbg_bfs's overflow rule on an uncapped search's level sizes: more
+    than V vertices logged, or a level that yields more than W new ones."""
+    n_vis = 0
+    for level, nf in enumerate(sizes):
+        n_vis += nf
+        if n_vis > V:
+            return True
+        if level < max_depth and level + 1 < len(sizes) and sizes[level + 1] > W:
+            return True
+    return False
+
+
+# (W, V) -> searches of chip_smoke.mixed_bfs_batch that overflow
+_MIXED_CAPS = {(32, 64): 4, (32, 2048): 3, (256, 2048): 2}
+
+
+@pytest.mark.parametrize("k", [24, 32])
+@pytest.mark.parametrize("caps", sorted(_MIXED_CAPS))
+def test_plain_mixed_batch_matches_host(k, caps):
+    """One call that mixes inactive directions, depth 0, thin searches, a
+    frontier of 16 (two passes of 8 vertices, under W), frontiers over W,
+    logs over V and an odd G, held against the uncapped host BFS: the
+    overflow flags follow the rule, every other log is the host's."""
+    W, V = caps
+    bf, searches = chip_smoke.mixed_bfs_batch(k)
+    assert len(searches) % 2 == 1
+    dbg = konnector.DBG(bf, k)
+    bfs = DeviceBFS(bf, k, device="cpu")
+    vis, msk, n_vis, over = dbg_bfs.dbg_bfs(*bfs.inputs(searches), W, V)
+    vis = u64.to_u64(vis)
+    widest = 0
+    for g, (start, goal, md_f, md_r) in enumerate(searches):
+        for d, (seed, md) in enumerate(((start, md_f), (goal, md_r))):
+            if md < 0:
+                assert n_vis[g, d] == 0 and not over[g, d]
+                continue
+            masks, sizes = _ref_levels(dbg, seed, md, d == 0)
+            assert bool(over[g, d]) == _expect_over(sizes, md, W, V), (g, d)
+            if not over[g, d]:
+                n = int(n_vis[g, d])
+                assert dict(zip(vis[g, d, :n].tolist(), msk[g, d, :n].tolist())) == masks
+                assert n == len(masks)
+                widest = max(widest, *sizes)
+    assert int(over.any(dim=1).sum()) == _MIXED_CAPS[caps]
+    assert n_vis[2].tolist() == [1, 0]  # depth 0 beside an inactive direction
+    assert widest >= 16  # a clean search wider than one pass of 8 vertices
+
+
 def _gap_scenario(n=40_000, seed=9, n_gaps=6):
     truth = _genome(n, seed)
     bf = _filter(truth, K, 1 << 17)
@@ -267,3 +343,23 @@ def test_cuda_kernel_matches_plain():
     got = dbg_bfs.dbg_bfs(words.cuda(), int(bf.bits), H, 32, seeds.cuda(), seeds.cuda(),
                           seeds.cuda(), md.cuda(), 32, 64)
     assert torch.equal(got[2].cpu(), want[2]) and torch.equal(got[3].cpu(), want[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [24, 32])
+@pytest.mark.parametrize("caps", sorted(_MIXED_CAPS))
+def test_cuda_kernel_matches_plain_mixed_batch(k, caps):
+    """The twin of test_plain_mixed_batch_matches_host on the card: the
+    kernel's logs, counts and overflow flags equal the plain version's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no interpret mode)")
+    W, V = caps
+    bf, searches = chip_smoke.mixed_bfs_batch(k)
+    want = dbg_bfs.dbg_bfs_reference(*DeviceBFS(bf, k, device="cpu").inputs(searches), W, V)
+    launches = dbg_bfs.dbg_bfs.launches.value
+    got = dbg_bfs.dbg_bfs(*DeviceBFS(bf, k, device="cuda").inputs(searches), W, V)
+    torch.cuda.synchronize()
+    assert dbg_bfs.dbg_bfs.launches.value == launches + 1
+    assert chip_smoke.bfs_err(chip_smoke.canonical_bfs(got),
+                              chip_smoke.canonical_bfs(want)) == 0
+    assert int(want[3].any(dim=1).sum()) == _MIXED_CAPS[caps]

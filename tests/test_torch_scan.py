@@ -6,12 +6,16 @@ conftest mesh has 8 CPU devices and the JAX DeviceScanner would shard.
 Every comparison is exact.  Two inputs are held against the host filter
 (ops/bloom.py) instead of the JAX scan, each test saying why.  The JAX
 package is imported only where it is compared with, so the CUDA cases also
-run where jax is not installed (`pytest --noconftest -m cuda`)."""
+run where jax is not installed (`pytest --noconftest -m cuda`).  The edge
+sweep (row lengths around the kernel's 8-window runs and 2,048-window
+tiles) takes its inputs from chip_smoke.scan_edge_case, as the smoke run on
+the card does."""
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from goldpolish_tpu_torch.ops import bloom
 from goldpolish_tpu_torch.ops import nthash as nt
 from goldpolish_tpu_torch.ops import scan_conv as tsc
@@ -110,6 +114,26 @@ def test_non_pow2_filter_matches_host(bf_bytes):
     assert not np.array_equal(jax_got, want)  # the reference fault stands
 
 
+@pytest.mark.parametrize("nw,k,h,B,pow2", chip_smoke.scan_edge_cases())
+def test_scan_edges_match_host(nw, k, h, B, pow2):
+    """Rows of nw windows around every edge of the kernel's tiling (a
+    thread's run of 8 windows, a block's tile of 2,048), on the full byte
+    alphabet, against the host filter window by window; the pad bits of
+    the last byte are 0."""
+    bf, codes = chip_smoke.scan_edge_case(nw, k, h, B, pow2)
+    assert (int(bf.bits) & (int(bf.bits) - 1) == 0) == pow2
+    got = _port_scan(bf, k, codes)
+    assert got.shape == (B, (nw + 7) // 8)
+    for row, packed in zip(codes, got):
+        want = bf.contains(nt.multi_hashes(nt.canonical_hashes(row, k), k, h))
+        bits = np.unpackbits(packed, bitorder="little")
+        assert np.array_equal(bits[:nw].astype(bool), want)
+        assert not bits[nw:].any()
+    if nw >= 2047:
+        assert len(set(codes.flatten().tolist())) > 30  # bytes beyond ACGT
+        assert 0.3 < np.unpackbits(got).mean() < 0.9
+
+
 def test_from_words_takes_the_jax_package_filter():
     from goldpolish_tpu.ops import bloom as jax_bloom
 
@@ -183,6 +207,18 @@ def test_cuda_kernel_matches_plain(k):
     got2 = tsc.scan_present_packed(w2.cuda(), int(bf2.bits), h, k, codes.cuda())
     want2 = tsc.scan_present_packed_reference(w2, int(bf2.bits), h, k, codes)
     assert torch.equal(got2.cpu(), want2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw,k,h,B,pow2", chip_smoke.scan_edge_cases())
+def test_cuda_kernel_matches_plain_edges(nw, k, h, B, pow2):
+    """The twin of test_scan_edges_match_host on the card: kernel against
+    plain version, the codes also at an odd byte offset of their buffer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no interpret mode)")
+    launches = tsc.scan_present_packed.launches.value
+    chip_smoke.scan_edge_check((nw, k, h, B, pow2))
+    assert tsc.scan_present_packed.launches.value == launches + 2
 
 
 @pytest.mark.cuda
