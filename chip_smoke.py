@@ -29,7 +29,14 @@ raises and the script exits non-zero without the result line.
             (b) with an N every 100th byte against the p = 0.75 filter
             (heads above S = 4096, needing sites above s_ins = 1024), all
             nine outputs; each for k in 32, 28, 24, 20, with the call's
-            scratch bytes (gp_scan_eval_scratch_bytes).  Times after
+            scratch bytes (gp_scan_eval_scratch_bytes); and site_eval (the
+            batched site eval of the jax editor) on the first 256 hot
+            sites of another mutated 1.05 Mbp draft (the last replaced by
+            a site whose suffix runs past the draft's end), all four
+            outputs, for k in 32, 28, 24, 20, 341 and 21 insertion combos,
+            against that draft's 4 MiB truth filter, the p = 0.75 filter
+            and a p = 0.75 filter whose bit count is no power of two, with
+            the call's checked windows and L2 requests.  Times after
             warm-up: `ms` and `plain_ms` per call of back-to-back calls
             between two CUDA events (host included), `device_ms` the
             device time per call (the profiler's summed CUDA events; null
@@ -44,17 +51,28 @@ raises and the script exits non-zero without the result line.
             `--backend hybrid` with GPTPU_DEVICE_EVAL=0 (the dense scan
             alone), then `--backend numpy`, then the defaults with
             `--fill-overlap` (the device fill claims batches from the tail);
-            the hybrid arms with GPTPU_FORCE_DEVICE_SCAN=1.  Requires the
-            first three outputs byte-identical; the default arm: scan_eval
-            launches > 0, walker table hits > 0; the eval-off arm: scan
-            kernel launches > 0; the overlap arm: 4 contigs, at least one
-            batch polished with device filters, both fill kernels launched
-            (its bytes' equality with the default arm is reported, not
-            required: the device filter is a superset of the host fill's);
-            no plain-version call in any arm.  Every count is set to 0
-            just before an arm and read just after it.  Prints each arm's
-            wall time, Bloom-fill seconds, ntEdit stage sum, table hits /
-            giveups, and the sealer's seconds and gaps found / closed.
+            the hybrid arms with GPTPU_FORCE_DEVICE_SCAN=1.  Then three
+            arms without the sealer: `--backend jax --no-sealer` (the
+            packed scan and site_eval on the card, the Python walk, the
+            host fill), `--backend numpy --no-sealer`, and the jax arm's
+            config with PipelineConfig.device_bf_build (kernel 5 fills
+            every batch).  Requires the first three outputs byte-identical
+            and the two --no-sealer arms' outputs too; the default arm:
+            scan_eval launches > 0, walker table hits > 0; the eval-off arm:
+            scan kernel launches > 0; the overlap arm: 4 contigs, at least
+            one batch polished with device filters, both fill kernels
+            launched (its bytes' equality with the default arm is
+            reported, not required: the device filter is a superset of the
+            host fill's); the jax arm: site_eval and scan launches > 0; the
+            device_bf_build arm: 4 of 4 batches filled on the card, both
+            fill kernels, site_eval and the scan launched (its bytes'
+            equality with the jax arm and its share of contigs equal to the
+            truth are reported); no plain-version call in any CUDA arm.
+            Every count is set to 0 just before an arm and read just after
+            it.  Prints each arm's wall time, Bloom-fill seconds
+            (`bf_build_s` inline, `bf_fill_bg_s` on the lookahead thread),
+            ntEdit stage sum, table hits / giveups, launch and plain-call
+            counts, and the sealer's seconds and gaps found / closed.
             Before the arms, the fill phase: for each of the 4 batches
             (bulk's builder and read choice: ~1,900 reads, ~11.6 Mbases,
             a 10 MiB counting filter and a 4 MiB filter per k), the device
@@ -83,10 +101,10 @@ raises and the script exits non-zero without the result line.
 
 Then a {"kernels": [...]} line (launches counted on the path each kernel
 serves: the main path's default arm for scan_eval, its eval-off arm for
-the scan, its overlap arm for the fill (the sum of its two wrappers),
-phase 5 for the BFS; the probe is fused into all three and launches
-nothing on its own; each kernel's bound from its call's own inputs, see
-HBM_BYTES_PER_S), and last the line
+the scan, its overlap arm for the fill (the sum of its two wrappers), its
+device_bf_build arm for site_eval, phase 5 for the BFS; the probe is fused
+into all of them and launches nothing on its own; each kernel's bound from
+its call's own inputs, see HBM_BYTES_PER_S), and last the line
 {"ok": true, "device": {"platform": "gpu", ...}}.
 """
 
@@ -121,6 +139,11 @@ NON_POW2_BYTES = 49160  # a filter whose bit count is no power of two
 # window counts of a scan row that straddle kernel 2's edges: the 8-window
 # run of a thread (one output byte) and the 2,048-window tile of a block
 SCAN_EDGE_NW = (1, 7, 8, 9, 2047, 2048, 2049, 4097)
+SITE_EVAL_S = 256  # the jax editor's site batch in modes 1/2 (polish/ntedit_gpu.py)
+TIER0_COMBOS = 21  # mode 0's first tier of insertion combos (polish/ntedit_gpu.py)
+# the random 4-byte L2 requests per second that bound kernels 2, 4 and 5
+# (kernel 2's rate measured on the H100, PERF.md §6)
+L2_REQUESTS_PER_S = 124e9
 # a kernel's bound: the larger of its bytes (each input read once, each
 # output written once) over the H100's HBM rate and its operations (one per
 # derived hash value or probe index) over the card's 67 T/s scalar rate
@@ -489,6 +512,115 @@ def phase_scan_eval(rng):
     return rows_out
 
 
+def hot_sites(draft: np.ndarray, bf, k: int) -> np.ndarray:
+    """The first SITE_EVAL_S hot windows of a draft (the editor's
+    detection masks, polish/ntedit_gpu.NtEditGPU._masks, on the host), the
+    last replaced by a window whose suffix runs past the draft's end."""
+    from goldpolish_tpu_torch.polish.multik import ntedit_config_for_k
+    from goldpolish_tpu_torch.polish.ntedit_gpu import NtEditGPU
+
+    eng = NtEditGPU(ntedit_config_for_k(k), bf, backend="numpy", device="cpu")
+    sites = np.nonzero(eng._masks(draft).hot)[0][:SITE_EVAL_S].astype(np.int64)
+    sites[-1] = len(draft) - k - 2  # within k + max_del of the end
+    return sites
+
+
+def site_eval_requests(words, bits: int, h: int, codes, n: int, sites, tables,
+                       C: int) -> tuple[int, int]:
+    """(checked windows, the filter words they need when a window stops at
+    its first clear bit) of a site eval call: its plain version with the
+    window probe counted (on the tensors' device)."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import siteeval_device as sd
+
+    probe, tally = sd._window_probes, [0, 0]
+
+    def counted(words64, bits_, patches, k, h_, j_idx):
+        base = sd.ntd.canonical_hashes(patches, k)[..., j_idx]
+        bit = sd.probe_bit_reference(words64, bits_, sd.ntd.multi_hashes(base, k, h_))
+        alive = bit.to(torch.int32).cumprod(-1)  # alive after each hash
+        tally[0] += base.numel()
+        tally[1] += base.numel() + int(alive[..., :-1].sum().item())
+        return bit.all(-1)
+
+    sd._window_probes = counted
+    try:
+        sd.eval_sites_device_reference(words, bits, h, codes, n, sites, tables, C)
+    finally:
+        sd._window_probes = probe
+    return tally[0], tally[1]
+
+
+def phase_site_eval(rng):
+    """site_eval (the batched site eval, K7) against its plain version at
+    the main path's call shape (see the module docstring), required
+    bit-equal on all four outputs."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import bloom
+    from goldpolish_tpu_torch.ops import nthash as nt
+    from goldpolish_tpu_torch.ops import siteeval
+    from goldpolish_tpu_torch.ops import siteeval_device as sd
+    from goldpolish_tpu_torch.polish.multik import ntedit_config_for_k
+
+    dev = torch.device("cuda")
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    truth = acgt[rng.integers(0, 4, 4 * EVAL_ROW + 2000)].tobytes().decode()
+    draft = np.frombuffer("".join(mutate(truth, rng)).encode(), np.uint8)
+    truth = np.frombuffer(truth.encode(), np.uint8)
+    codes = torch.from_numpy(draft.copy()).to(dev)
+    bits2 = NON_POW2_BYTES * 8
+    filters = {"p75": (torch.from_numpy(random_words(rng, FILTER_BITS)).to(dev), FILTER_BITS),
+               "non_pow2": (torch.from_numpy(random_words(rng, bits2)).to(dev), bits2)}
+    rows = []
+    for k in K_VALUES:
+        cfg = ntedit_config_for_k(k)
+        tables = siteeval.make_tables(k, cfg.jump, cfg.max_insertions, cfg.max_deletions)
+        bf = bloom.BloomFilter(FILTER_BITS // 8, 4, k)
+        bf.insert(nt.multi_hashes(nt.canonical_hashes(truth, k), k, 4))
+        sites_np = hot_sites(draft, bf, k)
+        sites = torch.from_numpy(sites_np).to(dev)
+        truth_words = torch.from_numpy(bf.words_u32().view(np.int32).copy()).to(dev)
+        for label, (words, bits) in {"truth": (truth_words, FILTER_BITS), **filters}.items():
+            for C in (tables.n_combos, TIER0_COMBOS):
+                args = (words, bits, 4, codes, len(draft), sites, tables, C)
+                got = sd.site_eval(*args)
+                want = sd.eval_sites_device_reference(*args)
+                windows, requests = site_eval_requests(*args)
+                dev_ms = device_ms(lambda: sd.site_eval(*args), 20)
+                ctx_bytes = len(sites_np) * (2 * k - 1 + tables.max_del)
+                row = {
+                    "k": k, "filter": label, "sites": len(sites_np), "combos": C,
+                    "near_end_site": int(sites_np[-1]), "draft_bp": len(draft),
+                    "equal": all(g.shape == w.shape and torch.equal(g, w)
+                                 for g, w in zip(got, want)),
+                    "max_abs_err": max(int((g.int() - w.int()).abs().max().item())
+                                       for g, w in zip(got, want)),
+                    "gate_share": float(want[0].float().mean().item()),
+                    "checked_windows": windows,
+                    # the random L2 requests: those the design sends (all h
+                    # loads of a window) and those an early exit would need
+                    "l2_requests": 4 * windows, "l2_requests_min": requests,
+                    "request_floor_ms": 4 * windows / L2_REQUESTS_PER_S * 1e3,
+                    "l2_requests_per_s": 4 * windows / (dev_ms * 1e-3) if dev_ms else None,
+                    "ms": time_ms(lambda: sd.site_eval(*args), 20),
+                    "device_ms": dev_ms,
+                    "plain_ms": time_ms(lambda: sd.eval_sites_device_reference(*args),
+                                        3, warm=1),
+                    # bytes: the filter words the probes need (at most the
+                    # filter), each site's context, the sites, the outputs
+                    **bound(min(tensor_bytes(words), 4 * requests) + ctx_bytes
+                            + tensor_bytes(sites, *want), 4 * windows),
+                }
+                rows.append(row)
+                emit(phase="kernel_site_eval", **row)
+                if not row["equal"]:
+                    raise AssertionError(
+                        f"site_eval disagrees with plain at k={k}, C={C} ({label})")
+    return rows
+
+
 def make_inputs(rng, work: str):
     """Truth genome, mutated draft, simulated reads + PAF (files in work)."""
     sizes = [GENOME_BP // N_CONTIGS] * N_CONTIGS
@@ -649,10 +781,11 @@ class SealerTally:
 
     def __call__(self, *args, **kw):
         res = self.inner(*args, **kw)
+        sealer = res.stats.get("sealer", {})  # none with --no-sealer
         with self._lock:
-            self.gaps_found += res.stats["sealer"]["gaps_found"]
-            self.gaps_closed += res.stats["sealer"]["gaps_closed"]
-            self.sealer_s += res.stats["timing"]["sealer_s"]
+            self.gaps_found += sealer.get("gaps_found", 0)
+            self.gaps_closed += sealer.get("gaps_closed", 0)
+            self.sealer_s += res.stats["timing"].get("sealer_s", 0.0)
             self.ntedit_s += res.stats["timing"]["ntedit_s"]
         return res
 
@@ -698,14 +831,17 @@ def main_counters() -> dict:
     from goldpolish_tpu_torch.ops import bloom_sort as bs
     from goldpolish_tpu_torch.ops import scan_conv as sc
     from goldpolish_tpu_torch.ops import scan_eval as se
+    from goldpolish_tpu_torch.ops import siteeval_device as sd
 
     return {
         "scan_eval_launches": se.scan_eval.launches,
         "scan_kernel_launches": sc.scan_present_packed.launches,
+        "site_eval_launches": sd.site_eval.launches,
         "probe_kernel_launches": bp.probe_lo32.launches,
         **{f"fill_{op.__name__}_launches": op.launches for op in bs.KERNEL_OPS},
         "plain_scan_eval": se.scan_eval_reference.calls,
         "plain_scan": sc.scan_present_packed_reference.calls,
+        "plain_site_eval": sd.eval_sites_device_reference.calls,
         "plain_probe": bp.probe_lo32_reference.calls,
         **{f"plain_fill_{op.__name__}": op.calls for op in bs.PLAIN_OPS},
     }
@@ -737,9 +873,12 @@ def cli_argv(inp: dict, name: str, *extra: str) -> list[str]:
     return argv
 
 
-def run_arm(inp: dict, name: str, env: dict, *extra: str) -> dict:
+def run_arm(inp: dict, name: str, env: dict, *extra: str,
+            device_bf_build: bool = False) -> dict:
     """One CLI run of the main path: every count set to 0 just before it
-    and read just after; prints its line and returns what it saw."""
+    and read just after; prints its line and returns what it saw.  With
+    device_bf_build, run_bulk runs the CLI's config with that field set
+    (PipelineConfig's, which the CLI does not expose)."""
     from goldpolish_tpu_torch import cli
     from goldpolish_tpu_torch.pipeline import bulk
 
@@ -750,12 +889,21 @@ def run_arm(inp: dict, name: str, env: dict, *extra: str) -> dict:
     os.environ.update({key: v for key, v in env.items() if v is not None})
     run_bulk, run = bulk.run_bulk, {}
     bulk.run_bulk = lambda cfg: run.update(run_bulk(cfg)) or run
+
+    def main_path() -> int:
+        if not device_bf_build:
+            return cli.main(argv)
+        cfg = cli.args_to_config(cli.build_parser().parse_args(argv))
+        cfg.device_bf_build = True
+        bulk.run_bulk(cfg)
+        return 0
+
     for c in counters.values():
         c.reset()
     try:
         t = time.monotonic()
         with SealerTally() as tally, WalkTally() as walk:
-            rc = cli.main(argv)
+            rc = main_path()
         wall = time.monotonic() - t
     finally:
         bulk.run_bulk = run_bulk
@@ -774,6 +922,7 @@ def run_arm(inp: dict, name: str, env: dict, *extra: str) -> dict:
     line = dict(wall_s=wall, polished_bases_per_s=inp["draft_bp"] / wall,
                 contigs=len(recs), contigs_equal_truth=exact,
                 share_equal_truth=exact / N_CONTIGS, ntedit_s=tally.ntedit_s,
+                bf_build_s=run["timing"].get("bf_build_s"),
                 bf_fill_bg_s=run["timing"].get("bf_fill_bg_s"),
                 device_filled_batches=run["device_filled_batches"],
                 sealer_s=tally.sealer_s, gaps_found=tally.gaps_found,
@@ -805,10 +954,19 @@ def phase_main(rng):
         host = run_arm(inp, "numpy", {}, "--backend", "numpy")
         ov = run_arm(inp, "fill_overlap", {**FORCE, "GPTPU_DEVICE_EVAL": None},
                      "--fill-overlap")
+        # the jax backend (its sealer arm is not ported: --no-sealer), with
+        # the host fill and with device_bf_build, beside numpy --no-sealer
+        jax = run_arm(inp, "jax", {}, "--backend", "jax", "--no-sealer")
+        host_ns = run_arm(inp, "numpy_no_sealer", {}, "--backend", "numpy", "--no-sealer")
+        dbb = run_arm(inp, "jax_device_bf_build", {}, "--backend", "jax", "--no-sealer",
+                      device_bf_build=True)
         emit(phase="main_check", default_equals_numpy=on["bytes"] == host["bytes"],
              eval_off_equals_numpy=off["bytes"] == host["bytes"],
              output_bytes=len(on["bytes"]),
-             fill_overlap_equals_default=ov["bytes"] == on["bytes"])
+             fill_overlap_equals_default=ov["bytes"] == on["bytes"],
+             jax_equals_numpy_no_sealer=jax["bytes"] == host_ns["bytes"],
+             device_bf_build_equals_jax=dbb["bytes"] == jax["bytes"],
+             device_bf_build_share_equal_truth=dbb["share_equal_truth"])
         if on["bytes"] != host["bytes"] or off["bytes"] != host["bytes"]:
             raise AssertionError("a hybrid arm's output differs from the numpy backend")
         if len(on["records"]) != N_CONTIGS:
@@ -828,12 +986,26 @@ def phase_main(rng):
         fill_launches = [ov[f"fill_{op.__name__}_launches"] for op in bs.KERNEL_OPS]
         if min(fill_launches) <= 0:
             raise AssertionError(f"the overlap arm missed a fill kernel: {fill_launches}")
-        if any(arm["plain_calls"] for arm in (on, off, ov)):
+        if jax["bytes"] != host_ns["bytes"]:
+            raise AssertionError("the jax arm's output differs from numpy --no-sealer")
+        if jax["site_eval_launches"] <= 0 or jax["scan_kernel_launches"] <= 0:
+            raise AssertionError("the jax arm did not launch site_eval and the scan")
+        if dbb["device_filled_batches"] != N_CONTIGS:
+            raise AssertionError(f"device_bf_build filled {dbb['device_filled_batches']} "
+                                 f"of {N_CONTIGS} batches on the card")
+        dbb_fill = [dbb[f"fill_{op.__name__}_launches"] for op in bs.KERNEL_OPS]
+        if min(dbb_fill) <= 0:
+            raise AssertionError(f"the device_bf_build arm missed a fill kernel: {dbb_fill}")
+        if dbb["site_eval_launches"] <= 0 or dbb["scan_kernel_launches"] <= 0:
+            raise AssertionError("the device_bf_build arm did not launch site_eval "
+                                 "and the scan")
+        if any(arm["plain_calls"] for arm in (on, off, ov, jax, dbb)):
             raise AssertionError("a plain version ran during a CUDA run")
         launches = {"scan_eval": on["scan_eval_launches"],
                     "scan_present_packed": off["scan_kernel_launches"],
                     "probe_lo32": on["probe_kernel_launches"],
-                    "bloom_sort_fill": sum(fill_launches)}
+                    "bloom_sort_fill": sum(fill_launches),
+                    "site_eval": dbb["site_eval_launches"]}
         return launches, truths, fills
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1175,6 +1347,7 @@ def main() -> int:
     probe, scans = phase_kernels(rng)
     # its own generator, so the other phases keep their inputs
     evals = phase_scan_eval(np.random.default_rng(SEED + 1))
+    sites = phase_site_eval(np.random.default_rng(SEED + 3))
     launches, truths, fills = phase_main(rng)
     bfs_launches, bfs_rows = phase_sealer(truths)
     first = scans[0]
@@ -1228,6 +1401,15 @@ def main() -> int:
             "ms": fills[0]["ms"][0], "plain_ms": fills[0]["plain_ms"][0],
             "device_ms": fills[0]["device_ms"][0],
             **{key: fills[0][key] for key in keys[1:]}, "library_ms": None,
+        },
+        {
+            "name": "site_eval", "route": "cuda",
+            "source": "goldpolish_tpu_torch/csrc/site_eval.cu",
+            "replaces": "goldpolish_tpu/ops/siteeval_jax.py:44",
+            "launches": launches["site_eval"],
+            "max_abs_err": max(r["max_abs_err"] for r in sites),
+            "ms": sites[0]["ms"], "plain_ms": sites[0]["plain_ms"],
+            **{key: sites[0][key] for key in keys}, "library_ms": None,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 
 Run from the repository root:
 
-    python3 chip_trace.py [--root DIR] [--runs N] [--no-trace] [--kernels]
+    python3 chip_trace.py [--root DIR] [--runs N] [--no-trace] [--kernels | --jax]
 
 It polishes chip_smoke.py's main-path input (the seeded 4.64 Mbp gapped
 draft, its reads and PAF, `-b 1`, k = 32, 28, 24, 20, sealer on) with three
@@ -19,6 +19,12 @@ activities): the device's busy time (the union of the intervals of every
 CUDA event: kernels, copies, memsets), its idle share of the traced run,
 and device time by event name (largest first).  Last, one traced run of the
 smoke's sealer phase with the hybrid backend (kernel 3 by name).
+
+--jax runs two other arms, both with --no-sealer: `default_no_sealer`
+(the CLI's default backend, hybrid, as above) and `jax_device_bf_build`
+(`--backend jax`, the packed scan and the site eval on the card with the
+Python walk, and PipelineConfig.device_bf_build: kernel 5 fills every
+batch), with the same runs and traces (no sealer trace).
 
 --kernels times kernels 2 and 3 alone instead (chip_smoke.scan_rows and
 bfs_rows: every k on both filters, both BFS tiers on the sealer run's
@@ -40,9 +46,12 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-# arm -> (GPTPU_DEVICE_EVAL, extra CLI arguments)
-ARMS = {"default": (None, ()), "fill_overlap": (None, ("--fill-overlap",)),
-        "hybrid_eval_off": ("0", ())}
+# arm -> (GPTPU_DEVICE_EVAL, CLI arguments, device_bf_build)
+ARMS = {"default": (None, ("--backend", "hybrid"), False),
+        "fill_overlap": (None, ("--backend", "hybrid", "--fill-overlap"), False),
+        "hybrid_eval_off": ("0", ("--backend", "hybrid"), False)}
+JAX_ARMS = {"default_no_sealer": (None, ("--backend", "hybrid", "--no-sealer"), False),
+            "jax_device_bf_build": (None, ("--backend", "jax", "--no-sealer"), True)}
 
 
 def device_profile(events) -> dict:
@@ -71,9 +80,14 @@ def main() -> int:
                     help="checkout whose goldpolish_tpu_torch to run")
     ap.add_argument("--runs", type=int, default=4, help="timed runs of each arm")
     ap.add_argument("--no-trace", action="store_true")
-    ap.add_argument("--kernels", action="store_true",
-                    help="time kernels 2 and 3 alone, no CLI run")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--kernels", action="store_true",
+                      help="time kernels 2 and 3 alone, no CLI run")
+    mode.add_argument("--jax", action="store_true",
+                      help="the jax backend with device_bf_build against the "
+                           "default arm, both --no-sealer")
     args = ap.parse_args()
+    arms = JAX_ARMS if args.jax else ARMS
     import torch
 
     if not torch.cuda.is_available():
@@ -108,15 +122,16 @@ def main() -> int:
             return 0
 
         def run(arm: str, i: int) -> dict:
-            eval_env, extra = ARMS[arm]
+            eval_env, cli_args, device_bf_build = arms[arm]
             env = {**cs.FORCE, "GPTPU_DEVICE_EVAL": eval_env}
-            line = cs.run_arm(inp, f"{arm}_{i}", env, "--backend", "hybrid", *extra)
+            line = cs.run_arm(inp, f"{arm}_{i}", env, *cli_args,
+                              device_bf_build=device_bf_build)
             shutil.rmtree(os.path.join(work, f"ws_{arm}_{i}"), ignore_errors=True)
             return line
 
-        for arm in ARMS:
+        for arm in arms:
             run(arm, 0)
-        order = list(ARMS)
+        order = list(arms)
         for i in range(1, args.runs + 1):
             for arm in order if i % 2 else order[::-1]:
                 run(arm, i)
@@ -124,7 +139,7 @@ def main() -> int:
             return 0
         from torch.profiler import ProfilerActivity, profile
 
-        for arm in ARMS:
+        for arm in arms:
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t = time.monotonic()
@@ -135,6 +150,8 @@ def main() -> int:
             cs.emit(phase=f"trace_{arm}", traced_wall_s=wall,
                     idle_share=1 - dev["device_busy_ms"] / (wall * 1e3),
                     device_filled_batches=line["device_filled_batches"], **dev)
+        if args.jax:
+            return 0
         sealer_in = cs.sealer_inputs(inp["truths"])
         cs.seal_hybrid(*sealer_in)  # warm-up: the filters' first upload
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -2,11 +2,12 @@
 reference driver.
 
 Port counterpart: goldpolish_tpu/cli.py, copied with these changes:
---backend takes hybrid (the default: the card) or numpy (the host path;
-the jax backend is not ported), --device picks where the hybrid scan and
-the --fill-overlap device fill run (cuda, the default, raises without
-CUDA; cpu is for tests), and --target (targeted mode) raises until
-pipeline/targeted.py is ported (ROADMAP.md queue 1).
+--backend takes hybrid (the default: the card), jax (the device site eval;
+needs --no-sealer until its sealer arm is ported) or numpy (the host path),
+--device picks where the hybrid and jax device work and the --fill-overlap
+device fill run (cuda, the default, raises without CUDA; cpu is for
+tests), and --target (targeted mode) raises until pipeline/targeted.py is
+ported (ROADMAP.md queue 1).
 
 Usage mirrors `goldpolish <draft.fa> <reads.fa|fq> <out.fa>` with the
 reference's flags (reference: scripts/goldpolish:72-196) plus framework
@@ -60,14 +61,18 @@ def build_parser() -> argparse.ArgumentParser:
     tg.add_argument("--softmask", action="store_true",
                     help="Targets from softmasked regions (with --target)")
     # framework additions
-    p.add_argument("--backend", choices=["numpy", "hybrid"], default="hybrid",
+    p.add_argument("--backend", choices=["numpy", "hybrid", "jax"],
+                   default="hybrid",
                    help="Editor compute backend (default hybrid = the "
                         "fused scan and eval on --device + host walk; "
+                        "jax = the dense scan and batched site eval on "
+                        "--device + Python walk, with --no-sealer; "
                         "numpy = the host path)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="Where the hybrid scan and the --fill-overlap "
-                        "fill run (default cuda, which raises without CUDA; "
-                        "cpu = the plain torch versions, for tests)")
+                   help="Where the hybrid or jax device work and the "
+                        "--fill-overlap fill run (default cuda, which raises "
+                        "without CUDA; cpu = the plain torch versions, for "
+                        "tests)")
     p.add_argument("--checkpoint", default="",
                    help="Checkpoint manifest path for preemption-safe resume")
     p.add_argument("--no-sealer", action="store_true",
@@ -78,7 +83,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Fork-pool batch workers (host backend; scales "
                         "past the GIL like the reference's worker processes)")
     p.add_argument("--fill-overlap", action="store_true",
-                   help="Fast mode (hybrid backend): the device claims "
+                   help="Fast mode (hybrid or jax backend): the device claims "
                         "Bloom-fill batches from the tail and fills them "
                         "with the sort-based fill on --device (a superset "
                         "of the host fill); a late device fill races a "

@@ -60,22 +60,25 @@ class PipelineConfig:
 
     # new-framework knobs (no reference equivalent)
     # "hybrid" = the fused scan and eval on `device` + host walk (the
-    # default: the card); "numpy" = the host path
+    # default: the card); "jax" = the packed scan and the batched site eval
+    # on `device` + the Python walk (the sealer must be off until its device
+    # arm is ported); "numpy" = the host path
     backend: str = "hybrid"
-    # device of the hybrid scan and the fill_overlap fill: "cuda" raises
-    # without CUDA (never a CPU fallback); "cpu" runs the plain torch
-    # versions (tests)
+    # device of the hybrid and jax device work and of the device fills:
+    # "cuda" raises without CUDA (never a CPU fallback); "cpu" runs the
+    # plain torch versions (tests)
     device: str = "cuda"
-    # the device fill in place of every host fill: in the JAX package it
-    # acts only with the jax backend, which is not ported (K7), so run_bulk
-    # refuses it (kept so configs carry over)
+    # the device fill (kernel 5, a documented superset of the host fill) in
+    # place of every host fill; jax backend only (run_bulk refuses it with
+    # another backend, which the JAX package silently ignores)
     device_bf_build: bool = False
     # lookahead Bloom fill: batch N+1's filters build on a background
     # thread while batch N polishes (the reference BF-server's concurrency,
     # goldpolish_targeted_bfs.cpp:177-238); thread-pool path only — fork
     # pool workers fill in-process by construction
     lookahead_fill: bool = True
-    # fast mode, hybrid backend with the lookahead fill: a thread claims
+    # fast mode, hybrid or jax backend with the lookahead fill and without
+    # device_bf_build (which fills every batch on the device): a thread claims
     # batches from the tail and fills them on `device` (ops/bloom_sort,
     # kernel 5: a documented superset of the host fill); a device fill still
     # running when its batch is due races a host fill (the hedge)

@@ -138,6 +138,12 @@ def lib() -> ctypes.CDLL:
         L.gp_bf_promote.argtypes = [vp, i64, vp, i64, vp, i32, i32, vp, vp, vp, i32,
                                     u64, u64, vp, u64, vp, vp]
         L.gp_bf_promote.restype = i32
+        L.gp_site_eval.argtypes = [
+            vp, u64, i32, i32, vp, i64, vp, i64, vp, vp, vp, u64,
+            vp, vp, i32, vp, i32, i32, i32, vp, i32, i32, i32,
+            vp, vp, vp, vp, vp,
+        ]
+        L.gp_site_eval.restype = i32
         _LIB = L
         return L
 

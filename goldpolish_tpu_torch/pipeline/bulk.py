@@ -16,16 +16,19 @@ Batches run concurrently under an asyncio pool with a strictly ordered
 writer and a checkpoint manifest (pipeline.engine).
 
 Port counterpart: goldpolish_tpu/pipeline/bulk.py, copied with these cuts,
-each raising at startup until ported (ROADMAP.md queue 1): device_bf_build
-(it acts only with the jax backend, K7), the internal minimizer mapper, and
-multi-host runs.  The overlapped fill (--fill-overlap on the hybrid
-backend) runs kernel 5 on the config's device, with two repairs of the JAX
-code: a failed host hedge waits for the device fill, a failed device fill
-raises (never masked by a host fill), and the startup k bound comes from
-bloom_sort.KHALO.  The per-batch chain is the reference's whole chain; as in
-the JAX package, the sealer runs its host search for the numpy and hybrid
-backends alike (the whole-search device BFS is seal_records' hybrid arm,
-which bulk does not select).
+each raising at startup until ported (ROADMAP.md queue 1): the jax backend
+with the sealer on (its sealer arm is the device DBG, K8), the internal
+minimizer mapper, and multi-host runs.  device_bf_build (jax backend) fills
+every batch with kernel 5 on the config's device; the overlapped fill
+(--fill-overlap on the hybrid or jax backend, without device_bf_build)
+claims batches from the tail.  Repairs of the JAX code: a failed host hedge
+waits for the device fill, a failed device fill raises (never masked by a
+host fill), device_bf_build off the jax backend raises (the JAX package
+ignores it there), and the startup k bound comes from bloom_sort.KHALO.
+The per-batch chain is the reference's whole chain; as in the JAX package,
+the sealer runs its host search for the numpy and hybrid backends alike
+(the whole-search device BFS is seal_records' hybrid arm, which bulk does
+not select).
 """
 
 from __future__ import annotations
@@ -165,8 +168,12 @@ def _pool_worker(records):
 
 
 def build_batch_bfs(builder: BFBuilder, cfg: PipelineConfig, ids: list[str]):
-    """Per-batch filter build: the host fill (device_bf_build, which acts
-    only with the jax backend, is refused by check_ported)."""
+    """Per-batch filter build, host or fast-mode device (kernel 5 on
+    cfg.device: a superset filter, documented deviation; in-process only —
+    fork-pool workers never run the jax backend).  A failed device fill
+    raises."""
+    if cfg.device_bf_build and cfg.backend == "jax":
+        return builder.build_batch_device(ids, device=cfg.device)
     return builder.build_batch(ids)
 
 
@@ -221,7 +228,7 @@ def polish_batch_records(records, builder: BFBuilder, cfg: PipelineConfig,
         sealed, seal_stats = sealer_mod.seal_records(
             prepped, bfs_by_k, scfg,
             # the host search for numpy and hybrid alike, as the JAX
-            # package passes; its jax backend is not ported (check_ported)
+            # package passes; its jax arm (K8) is refused by check_ported
             backend="jax" if cfg.backend == "jax" else "numpy",
         )
         timing["sealer_s"] = round(_time.monotonic() - t0, 3)
@@ -247,29 +254,35 @@ def make_builder(cfg: PipelineConfig, workdir: str) -> BFBuilder:
 
 def check_ported(cfg: PipelineConfig) -> None:
     """Refuse, at startup, a configuration this port cannot run: not yet
-    (device_bf_build, the jax backend), or not here (the hybrid backend on
-    cuda without CUDA, never a CPU fallback; a fork pool beside the card)."""
-    if cfg.device_bf_build:
-        raise NotImplementedError(
-            "device_bf_build acts only with the jax backend, which is not "
-            "ported (K7, ROADMAP.md queue 1); use --fill-overlap with "
-            "--backend hybrid for the device fill"
+    (the jax backend's sealer arm), not at all (device_bf_build off the jax
+    backend, which the JAX package ignores silently), or not here (a device
+    backend on cuda without CUDA, never a CPU fallback; a fork pool beside
+    the card)."""
+    if cfg.backend not in ("numpy", "hybrid", "jax"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    if cfg.device_bf_build and cfg.backend != "jax":
+        raise ValueError(
+            "device_bf_build acts only with the jax backend; use "
+            "--fill-overlap for the device fill on the hybrid backend"
         )
-    if cfg.backend not in ("numpy", "hybrid"):
-        raise NotImplementedError(f"backend {cfg.backend!r} is not ported")
+    if cfg.backend == "jax" and cfg.run_sealer:
+        raise NotImplementedError(
+            "the jax backend's sealer arm (the device DBG, K8) is not ported "
+            "yet (ROADMAP.md queue 1): pass --no-sealer"
+        )
     if cfg.process_pool and cfg.backend != "numpy":
         raise ValueError(
             "--process-pool requires --backend numpy (forked workers cannot "
             "share a CUDA context)"
         )
-    if cfg.backend == "hybrid" and cfg.device.startswith("cuda"):
+    if cfg.backend != "numpy" and cfg.device.startswith("cuda"):
         import torch
 
         if not torch.cuda.is_available():
             raise RuntimeError(
-                f"--backend hybrid runs on --device {cfg.device}, and CUDA is "
-                "not available; --backend numpy is the host path (--device cpu "
-                "runs the plain torch versions, for tests)"
+                f"--backend {cfg.backend} runs on --device {cfg.device}, and "
+                "CUDA is not available; --backend numpy is the host path "
+                "(--device cpu runs the plain torch versions, for tests)"
             )
 
 
@@ -286,10 +299,13 @@ def run_bulk(cfg: PipelineConfig) -> dict:
     # (the device fill takes k <= KHALO + 1, as the JAX build's row halo)
     from ..ops import bloom_sort
 
-    if cfg.fill_overlap and any(k > bloom_sort.KHALO + 1 for k in cfg.k_values):
+    if (cfg.device_bf_build or cfg.fill_overlap) and any(
+        k > bloom_sort.KHALO + 1 for k in cfg.k_values
+    ):
         raise ValueError(
             f"device BF build supports k <= {bloom_sort.KHALO + 1}; got "
-            f"{cfg.k_values} — disable fill_overlap or drop the larger k"
+            f"{cfg.k_values} — disable device_bf_build/fill_overlap or drop "
+            "the larger k"
         )
     t_start = _time.monotonic()
     ws = engine.Workspace(
@@ -393,7 +409,10 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                         fill_futs[b.index] = fut
                 return fut
 
-            if cfg.fill_overlap and cfg.backend == "hybrid":
+            if (
+                cfg.fill_overlap and cfg.backend in ("hybrid", "jax")
+                and not cfg.device_bf_build
+            ):
                 # fast-mode overlapped fill (opt-in; see PipelineConfig):
                 # the device claims fill batches from the TAIL while the
                 # host lookahead works the front — whoever claims first
@@ -495,7 +514,9 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                 batch_bfs, fill_s, from_device = await loop.run_in_executor(
                     None, _hedged_result, fut, batch.records
                 )
-                totals["device_filled_batches"] += from_device
+                totals["device_filled_batches"] += (
+                    from_device or cfg.device_bf_build
+                )
                 with fill_done_cv:
                     fill_futs.pop(batch.index, None)
                     fill_done_cv.notify_all()
@@ -508,9 +529,11 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                 return res
         else:
             async def worker(batch: engine.Batch):
-                return await loop.run_in_executor(
+                res = await loop.run_in_executor(
                     None, polish_batch_records, batch.records, builder, cfg
                 )
+                totals["device_filled_batches"] += cfg.device_bf_build
+                return res
 
         if ckpt_dir:
             inner_worker = worker

@@ -1,15 +1,16 @@
 """Two-phase batched ntEdit engine (the device-scan editor).
 
 Port counterpart: goldpolish_tpu/polish/ntedit_tpu.py (class NtEditTPU ->
-NtEditGPU).  Backends "numpy" (host only) and "hybrid" (the dense scan on
-the device through polish/scanpipe.py, the native walk on the host); the
-JAX package's "jax" backend (device site eval, K7) raises until ported
-(ROADMAP.md queue 1).  The scanner is lazy; when it materializes it arms
-the fused phase-A eval (ops/scan_eval, K2) under GPTPU_DEVICE_EVAL (default
-on; "0" turns it off) with the JAX engine's conditions, and the walker then
-replays trials from the eval's tables.  The fork pool cannot serve a CUDA
-scanner (CUDA does not survive fork): processes > 1 on the pipelined path
-raises when the scanner is on CUDA.
+NtEditGPU).  Backends "numpy" (host only), "hybrid" (the dense scan on
+the device through polish/scanpipe.py, the native walk on the host) and
+"jax" (the JAX package's name for it: the packed dense probe,
+ops/bloom_device, and the batched site eval, ops/siteeval_device, K7, on the
+device; the two-phase Python engine walks).  The hybrid scanner is lazy;
+when it materializes it arms the fused phase-A eval (ops/scan_eval, K2)
+under GPTPU_DEVICE_EVAL (default on; "0" turns it off) with the JAX
+engine's conditions, and the walker then replays trials from the eval's
+tables.  The fork pool cannot serve the card (CUDA does not survive fork):
+processes > 1 raises where the device work runs on CUDA.
 
 The reference edits each contig with a sequential rolling scan — one Bloom
 probe per position, branchy candidate trials at missing sites
@@ -345,19 +346,15 @@ class NtEditGPU:
 
     backend:
       "numpy"  — host-only (native C++ eval when available),
+      "jax"    — device dense scan + device candidate evaluation,
       "hybrid" — device dense scan, host-native candidate evaluation.
-    device: where the hybrid scan runs — "cuda" (raises without CUDA) or
-      "cpu" (the plain torch scan; the tests use it).
+    device: where the hybrid and jax device work runs — "cuda" (raises
+      without CUDA) or "cpu" (the plain torch versions; the tests use it).
     """
 
     def __init__(self, cfg: Config, bf, backend: str = "numpy",
                  device: str = "cuda"):
-        if backend == "jax":
-            raise NotImplementedError(
-                "backend 'jax' (device site eval, K7) is not ported yet; "
-                "see ROADMAP.md queue 1"
-            )
-        if backend not in ("numpy", "hybrid"):
+        if backend not in ("numpy", "hybrid", "jax"):
             raise ValueError(f"unknown backend {backend!r}")
         self.cfg = cfg
         self.bf = bf
@@ -368,7 +365,19 @@ class NtEditGPU:
             snv=bool(cfg.snv),
         )
         self._scanner = None
-        if backend == "hybrid":
+        self._device_eval = backend == "jax"
+        if backend == "jax":
+            import torch
+
+            from ..ops import bloom_device
+
+            if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"backend 'jax' runs on device {device!r}, and CUDA is "
+                    "not available"
+                )
+            self._words = bloom_device.to_device_words(bf, device)
+        elif backend == "hybrid":
             # device runs the fused dense scan (ops/scan_conv); host runs
             # candidate eval + walk; placement is A/B-measured per workload
             # class in polish_many.  Construction is LAZY: the scanner (and
@@ -454,15 +463,16 @@ class NtEditGPU:
         """The full native walk (gp_polish_contig) replaces phases A+B when
         available: it runs trials only at truly visited sites with zero
         Python per-site overhead, and consumes a device-computed present[]
-        when one is passed.  GPTPU_NO_NATIVE_WALK=1 (the Python-engine
-        differential tests) keeps the two-phase path."""
+        when one is passed.  The jax backend (explicit device candidate
+        eval) and GPTPU_NO_NATIVE_WALK=1 (the Python-engine differential
+        tests) keep the two-phase path."""
         import os as _os
 
-        if _os.environ.get("GPTPU_NO_NATIVE_WALK"):
+        if self._device_eval or _os.environ.get("GPTPU_NO_NATIVE_WALK"):
             return False
         cfg = self.cfg
         # gp_polish_contig's compiled limits; outside them the two-phase
-        # engine (numpy eval fallbacks) handles the config
+        # engine (numpy/device eval fallbacks) handles the config
         if cfg.k > 64 or cfg.h > 16 or cfg.max_deletions > 7 or cfg.max_insertions > 5:
             return False
         try:
@@ -536,6 +546,15 @@ class NtEditGPU:
             return np.unpackbits(
                 packed.reshape(-1), bitorder="little"
             )[: n - k + 1].astype(bool)
+        if self._device_eval:
+            from ..ops import bloom_device
+
+            self._upload_codes(codes)
+            packed = bloom_device.probe_kmers_packed(
+                self._words, int(self.bf.bits), h, k, self._codes_dev
+            ).cpu().numpy()
+            pres = np.unpackbits(packed, bitorder="little")
+            return pres[: n - k + 1].astype(bool)
         try:
             from .. import native
 
@@ -545,7 +564,27 @@ class NtEditGPU:
             base = nt.canonical_hashes(codes, k)
             return self.bf.contains(nt.multi_hashes(base, k, h))
 
+    def _upload_codes(self, codes: np.ndarray) -> None:
+        """The contig's codes, zero-padded to a power-of-two bucket, on the
+        device (_codes_dev: the contig's dense probe and eval calls)."""
+        import torch
+
+        n = len(codes)
+        padded = np.zeros(max(256, 1 << (n - 1).bit_length()), np.uint8)
+        padded[:n] = codes
+        self._codes_dev = torch.from_numpy(padded).to(self.device)
+
     def _eval_sites(self, codes: np.ndarray, sites: np.ndarray, n_combos: int):
+        # the device eval only for batched evaluations; the rare mode-0
+        # escalations are single sites and stay on the host
+        if self._device_eval and len(sites) > 16:
+            from ..ops import siteeval_device
+
+            return siteeval_device.eval_sites_device(
+                codes, sites, self._words, int(self.bf.bits), self.tables,
+                self.cfg.h, n_combos, s_bucket=256,
+                codes_dev=getattr(self, "_codes_dev", None),
+            )
         try:
             from .. import native
 
@@ -598,7 +637,11 @@ class NtEditGPU:
                     shard_bases: int = 1_000_000):
         """Polish a batch of contigs with shared device work.
 
-        Returns a list of (edited, records, editor) triples in input order.
+        On the jax backend, the dense present[] probes of same-bucket
+        contigs run as one [B, L] device call (the reference's process-level
+        batch parallelism, SPMD-style); the sparse commit walks follow
+        per contig.  Returns a list of (edited, records, editor) triples in
+        input order.
 
         processes > 1 runs the commit walks in a fork pool (copy-on-write
         sharing of the Bloom filter and precomputed presents; workers use
@@ -673,8 +716,39 @@ class NtEditGPU:
 
     def _polish_many_std(self, seqs: list[bytes], processes: int,
                          shard_bases: int):
-        """Host-scan polish_many."""
+        """Host-scan polish_many (and the jax device-eval backend's path)."""
         presents: dict[int, np.ndarray] = {}
+        if self._device_eval and processes > 1 and self._words.device.type == "cuda":
+            # CUDA does not survive fork(); see _polish_many_pipelined
+            raise RuntimeError(
+                "polish_many(processes > 1) forks a worker pool, which cannot "
+                "serve the jax backend on CUDA; use processes=0"
+            )
+        if self._device_eval and len(seqs) > 1:
+            import torch
+
+            from ..ops import bloom_device
+
+            k, h = self.cfg.k, self.cfg.h
+            buckets: dict[int, list[int]] = {}
+            for i, s in enumerate(seqs):
+                if len(s) >= k:
+                    buckets.setdefault(
+                        max(256, 1 << (len(s) - 1).bit_length()), []
+                    ).append(i)
+            for bucket, idxs in buckets.items():
+                padded = np.zeros((len(idxs), bucket), np.uint8)
+                for row, i in enumerate(idxs):
+                    padded[row, : len(seqs[i])] = np.frombuffer(seqs[i], np.uint8)
+                packed = bloom_device.probe_kmers_packed(
+                    self._words, int(self.bf.bits), h, k,
+                    torch.from_numpy(padded).to(self.device),
+                ).cpu().numpy()
+                pres = np.unpackbits(
+                    packed.reshape(len(idxs), -1), axis=1, bitorder="little"
+                )
+                for row, i in enumerate(idxs):
+                    presents[i] = pres[row, : len(seqs[i]) - k + 1].astype(bool)
         if processes > 1:
             k = self.cfg.k
             # work items: whole contigs, plus slices of contigs long enough
@@ -931,6 +1005,8 @@ class NtEditGPU:
         if n < cfg.min_contig_len or n < k:
             return bytes(seq_in), [], ed
         codes = np.frombuffer(seq_in, np.uint8)
+        if present is not None and self._device_eval:
+            self._upload_codes(codes)  # eval calls still need them on the device
         masks = self._masks(codes, present)
         hot_list = np.nonzero(masks.hot)[0]
 
@@ -964,7 +1040,7 @@ class NtEditGPU:
         if cfg.mode == 0:
             batch_n, tier_combos = 64, TIER0_COMBOS
         else:
-            batch_n = 64
+            batch_n = 256 if self._device_eval else 64
             tier_combos = self.tables.n_combos
         site_cache: dict[int, tuple[siteeval.SiteSupports, int]] = {}
 

@@ -32,7 +32,7 @@ _SLICE_MODULES = [
     "ops.scan_conv", "ops.bloom_probe", "polish.ntedit_gpu", "pipeline.bulk",
     "ops.kmers", "ops.dbg_bfs", "fill", "fill.nw", "fill.konnector",
     "fill.extend", "fill.sealer", "polish.reports", "ops.scan_eval",
-    "ops.bloom_sort",
+    "ops.bloom_sort", "ops.nthash_device", "ops.bloom_device", "ops.siteeval_device",
 ]
 
 

@@ -228,13 +228,14 @@ def test_pipelined_polish_many_shape_fuzz(monkeypatch):
 
 def test_unported_paths_refuse(tmp_path, monkeypatch):
     cfg = _golden(PipelineConfig, str(tmp_path), 1, backend="numpy")
-    cfg.device_bf_build = True
-    with pytest.raises(NotImplementedError, match="device_bf_build"):
+    cfg.device_bf_build = True  # acts only with the jax backend
+    with pytest.raises(ValueError, match="device_bf_build"):
         bulk.run_bulk(cfg)
     cfg.device_bf_build = False
-    bf = bloom.BloomFilter(1 << 12, 4, 32)
-    with pytest.raises(NotImplementedError, match="K7"):
-        NtEditGPU(ne.Config(k=32, h=4), bf, backend="jax")
+    jax_cfg = _golden(PipelineConfig, str(tmp_path), 1, run_sealer=True, backend="jax",
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="K8"):  # its sealer arm
+        bulk.run_bulk(jax_cfg)
     with pytest.raises(NotImplementedError, match="targeted"):
         cli.main(["d.fa", "r.fq", "o.fa", "--target", "--no-sealer"])
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
