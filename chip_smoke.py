@@ -51,28 +51,35 @@ raises and the script exits non-zero without the result line.
             `--backend hybrid` with GPTPU_DEVICE_EVAL=0 (the dense scan
             alone), then `--backend numpy`, then the defaults with
             `--fill-overlap` (the device fill claims batches from the tail);
-            the hybrid arms with GPTPU_FORCE_DEVICE_SCAN=1.  Then three
-            arms without the sealer: `--backend jax --no-sealer` (the
-            packed scan and site_eval on the card, the Python walk, the
-            host fill), `--backend numpy --no-sealer`, and the jax arm's
-            config with PipelineConfig.device_bf_build (kernel 5 fills
-            every batch).  Requires the first three outputs byte-identical
-            and the two --no-sealer arms' outputs too; the default arm:
-            scan_eval launches > 0, walker table hits > 0; the eval-off arm:
-            scan kernel launches > 0; the overlap arm: 4 contigs, at least
-            one batch polished with device filters, both fill kernels
-            launched (its bytes' equality with the default arm is
-            reported, not required: the device filter is a superset of the
-            host fill's); the jax arm: site_eval and scan launches > 0; the
-            device_bf_build arm: 4 of 4 batches filled on the card, both
-            fill kernels, site_eval and the scan launched (its bytes'
-            equality with the jax arm and its share of contigs equal to the
-            truth are reported); no plain-version call in any CUDA arm.
-            Every count is set to 0 just before an arm and read just after
-            it.  Prints each arm's wall time, Bloom-fill seconds
-            (`bf_build_s` inline, `bf_fill_bg_s` on the lookahead thread),
-            ntEdit stage sum, table hits / giveups, launch and plain-call
-            counts, and the sealer's seconds and gaps found / closed.
+            the hybrid arms with GPTPU_FORCE_DEVICE_SCAN=1.  Then the two
+            jax arms, sealer on: `--backend jax` (the packed scan and
+            site_eval on the card, the Python walk, the host fill, and the
+            sealer's lockstep searches probing each BFS level with
+            dbg_extend4, kernel 7) and the same config with
+            PipelineConfig.device_bf_build (kernel 5 fills every batch).
+            Requires the first three outputs and the jax arm's
+            byte-identical; the default arm: scan_eval launches > 0, walker
+            table hits > 0; the eval-off arm: scan kernel launches > 0; the
+            overlap arm: 4 contigs, at least one batch polished with device
+            filters, both fill kernels launched (its bytes' equality with
+            the default arm is reported, not required: the device filter is
+            a superset of the host fill's); both jax arms: gaps found,
+            site_eval, scan and dbg_extend4 launches > 0; the
+            device_bf_build arm: 4 of 4 batches filled on the card and both
+            fill kernels launched (its bytes' equality with the jax arm and
+            its share of contigs equal to the truth are reported); no
+            plain-version call in any CUDA arm.  Every count is set to 0
+            just before an arm and read just after it.  Prints each arm's
+            wall time, Bloom-fill seconds (`bf_build_s` inline,
+            `bf_fill_bg_s` on the lookahead thread), ntEdit stage sum,
+            table hits / giveups, launch and plain-call counts, the
+            sealer's seconds and gaps found / closed, and the extension
+            probe's lockstep rounds per k with the median and largest rows
+            (vertices) per round.  After both jax arms, every round they
+            probed (its vertices, n_succ and its batch's filter words, kept
+            by ProbeLog) goes through dbg_extend4 and its plain version
+            again, required bit-equal; the jax arm's largest and median
+            rounds are timed (`kernel_dbg_extend4` rows `main_jax_*`).
             Before the arms, the fill phase: for each of the 4 batches
             (bulk's builder and read choice: ~1,900 reads, ~11.6 Mbases,
             a 10 MiB counting filter and a 4 MiB filter per k), the device
@@ -87,9 +94,12 @@ raises and the script exits non-zero without the result line.
 5. sealer   the sealer stage alone, on the 4.64 Mbp truth with a 60-bp
             lowercase gap every 18 kbp (256 gaps) and 16 MiB filters of the
             truth's k-mers at k = 32, 28, 24, 20 (h = 4): seal_records with
-            backend numpy, then backend hybrid on the card.  Requires equal
-            records and stats, dbg_bfs launches > 0 and no plain-version
-            call during the hybrid run.  Then dbg_bfs (the whole-search BFS
+            backend numpy, then backend hybrid on the card, then backend
+            jax on the card (the lockstep DeviceDBG, every round's frontier
+            recorded).  Requires equal records and stats, dbg_bfs launches
+            > 0 and no plain-version call during the hybrid run, and
+            dbg_extend4 launches > 0 and no plain call during the jax run.
+            Then dbg_bfs (the whole-search BFS
             kernel) against its plain version on the first 256 k = 32
             searches of that run and on a mixed batch of 9 searches
             (inactive directions, depth 0, thin paths, frontiers of 16, 64,
@@ -97,12 +107,20 @@ raises and the script exits non-zero without the result line.
             both run tiers (W = 32 and 256), required equal as
             per-direction (k-mer, mask) sets with their counts and overflow
             flags; each row has `levels` (the deepest level any search
-            reached) and the device time per level.
+            reached) and the device time per level.  Then dbg_extend4 (the
+            extension probe) against its plain version on every recorded
+            frontier of the jax run (rows for its largest and median k = 32
+            rounds) and on synthetic batches of 2^16 vertices (half of them
+            successor rows) cut from the truth with a few mixed bytes, at
+            k = 32 and 20, on the 16 MiB truth filter and on a p = 0.75
+            filter whose bit count is no power of two, required bit-equal,
+            with the L2 requests the kernel sends (4 x R x h).
 
 Then a {"kernels": [...]} line (launches counted on the path each kernel
 serves: the main path's default arm for scan_eval, its eval-off arm for
 the scan, its overlap arm for the fill (the sum of its two wrappers), its
-device_bf_build arm for site_eval, phase 5 for the BFS; the probe is fused
+device_bf_build arm for site_eval, its jax arm for dbg_extend4 (timed on
+that arm's largest round), phase 5 for the BFS; the probe is fused
 into all of them and launches nothing on its own; each kernel's bound from
 its call's own inputs, see HBM_BYTES_PER_S), and last the line
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -824,11 +842,66 @@ class WalkTally:
         self.native.polish_contig = self.inner
 
 
+class ProbeLog:
+    """Records every extension probe (kernel 7) call while the jax
+    backend's sealer runs: wraps ops/dbg_extend.dbg_extend4, which
+    DeviceDBG.prefetch looks up per lockstep round (batches seal on several
+    threads), and keeps each round's arguments (words, bits, h, k, the
+    vertices on the card, n_succ) for frontier_err."""
+
+    def __init__(self):
+        from goldpolish_tpu_torch.ops import dbg_extend
+
+        self.mod = dbg_extend
+        self.inner = dbg_extend.dbg_extend4
+        self.rounds: list[tuple[int, int]] = []  # (k, R) per call
+        self.frontiers: list[tuple] = []  # each call's arguments
+        self._lock = threading.Lock()
+
+    def __call__(self, *args):
+        _words, _bits, _h, k, verts, _n_succ = args
+        with self._lock:
+            self.rounds.append((k, verts.shape[0]))
+            self.frontiers.append(args)
+        return self.inner(*args)
+
+    def __enter__(self):
+        self.mod.dbg_extend4 = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.dbg_extend4 = self.inner
+
+    def summary(self) -> dict:
+        """Lockstep rounds per k, and the median and largest rows per round."""
+        rows = sorted(r for _k, r in self.rounds)
+        per_k: dict[str, int] = {}
+        for k, _r in self.rounds:
+            per_k[str(k)] = per_k.get(str(k), 0) + 1
+        return {"probe_rounds": per_k,
+                "probe_rows_median": rows[len(rows) // 2] if rows else None,
+                "probe_rows_max": rows[-1] if rows else None,
+                "probe_rows_total": sum(rows)}
+
+
+def frontier_err(frontiers) -> int:
+    """Kernel 7 against its plain version on recorded frontiers, each with
+    the words of the call that recorded it: the largest |kernel - plain|."""
+    from goldpolish_tpu_torch.ops import dbg_extend as de
+
+    err = 0
+    for args in frontiers:
+        got, want = de.dbg_extend4(*args), de.dbg_extend4_reference(*args)
+        err = max(err, int((got.int() - want.int()).abs().max().item()))
+    return err
+
+
 def main_counters() -> dict:
     """The launch counts of every kernel wrapper and the call counts of
     every plain version that the main path can reach."""
     from goldpolish_tpu_torch.ops import bloom_probe as bp
     from goldpolish_tpu_torch.ops import bloom_sort as bs
+    from goldpolish_tpu_torch.ops import dbg_extend as de
     from goldpolish_tpu_torch.ops import scan_conv as sc
     from goldpolish_tpu_torch.ops import scan_eval as se
     from goldpolish_tpu_torch.ops import siteeval_device as sd
@@ -837,11 +910,13 @@ def main_counters() -> dict:
         "scan_eval_launches": se.scan_eval.launches,
         "scan_kernel_launches": sc.scan_present_packed.launches,
         "site_eval_launches": sd.site_eval.launches,
+        "dbg_extend4_launches": de.dbg_extend4.launches,
         "probe_kernel_launches": bp.probe_lo32.launches,
         **{f"fill_{op.__name__}_launches": op.launches for op in bs.KERNEL_OPS},
         "plain_scan_eval": se.scan_eval_reference.calls,
         "plain_scan": sc.scan_present_packed_reference.calls,
         "plain_site_eval": sd.eval_sites_device_reference.calls,
+        "plain_dbg_extend4": de.dbg_extend4_reference.calls,
         "plain_probe": bp.probe_lo32_reference.calls,
         **{f"plain_fill_{op.__name__}": op.calls for op in bs.PLAIN_OPS},
     }
@@ -902,7 +977,7 @@ def run_arm(inp: dict, name: str, env: dict, *extra: str,
         c.reset()
     try:
         t = time.monotonic()
-        with SealerTally() as tally, WalkTally() as walk:
+        with SealerTally() as tally, WalkTally() as walk, ProbeLog() as probes:
             rc = main_path()
         wall = time.monotonic() - t
     finally:
@@ -927,10 +1002,11 @@ def run_arm(inp: dict, name: str, env: dict, *extra: str,
                 device_filled_batches=run["device_filled_batches"],
                 sealer_s=tally.sealer_s, gaps_found=tally.gaps_found,
                 gaps_closed=tally.gaps_closed, table_hits=walk.hits,
-                table_giveups=walk.giveups, **counts,
+                table_giveups=walk.giveups, **probes.summary(), **counts,
                 plain_calls=sum(v for key, v in counts.items() if key.startswith("plain")))
     emit(phase=f"main_{name}", **line)
-    return {**line, "bytes": data, "records": recs, "argv": argv}
+    return {**line, "bytes": data, "records": recs, "argv": argv,
+            "frontiers": probes.frontiers}
 
 
 # the hybrid arms pin the device scan (the A/B placement lock would
@@ -954,17 +1030,26 @@ def phase_main(rng):
         host = run_arm(inp, "numpy", {}, "--backend", "numpy")
         ov = run_arm(inp, "fill_overlap", {**FORCE, "GPTPU_DEVICE_EVAL": None},
                      "--fill-overlap")
-        # the jax backend (its sealer arm is not ported: --no-sealer), with
-        # the host fill and with device_bf_build, beside numpy --no-sealer
-        jax = run_arm(inp, "jax", {}, "--backend", "jax", "--no-sealer")
-        host_ns = run_arm(inp, "numpy_no_sealer", {}, "--backend", "numpy", "--no-sealer")
-        dbb = run_arm(inp, "jax_device_bf_build", {}, "--backend", "jax", "--no-sealer",
+        # the jax backend with the sealer (its lockstep searches probe each
+        # BFS level with kernel 7), with the host fill and with device_bf_build
+        jax = run_arm(inp, "jax", {}, "--backend", "jax")
+        dbb = run_arm(inp, "jax_device_bf_build", {}, "--backend", "jax",
                       device_bf_build=True)
+        # every lockstep round of both jax arms, with the words of the batch
+        # that ran it, held against the plain version after the arms' counts
+        # were read (these launches are not counted)
+        for name, arm in (("jax", jax), ("jax_device_bf_build", dbb)):
+            arm["probe_max_abs_err"] = frontier_err(arm["frontiers"])
+            emit(phase="kernel_dbg_extend4_main", arm=name,
+                 rounds=len(arm["frontiers"]), max_abs_err=arm["probe_max_abs_err"])
+            if arm["probe_max_abs_err"]:
+                raise AssertionError("dbg_extend4 disagrees with plain on a main-path "
+                                     "frontier")
         emit(phase="main_check", default_equals_numpy=on["bytes"] == host["bytes"],
              eval_off_equals_numpy=off["bytes"] == host["bytes"],
              output_bytes=len(on["bytes"]),
              fill_overlap_equals_default=ov["bytes"] == on["bytes"],
-             jax_equals_numpy_no_sealer=jax["bytes"] == host_ns["bytes"],
+             jax_equals_numpy=jax["bytes"] == host["bytes"],
              device_bf_build_equals_jax=dbb["bytes"] == jax["bytes"],
              device_bf_build_share_equal_truth=dbb["share_equal_truth"])
         if on["bytes"] != host["bytes"] or off["bytes"] != host["bytes"]:
@@ -986,27 +1071,41 @@ def phase_main(rng):
         fill_launches = [ov[f"fill_{op.__name__}_launches"] for op in bs.KERNEL_OPS]
         if min(fill_launches) <= 0:
             raise AssertionError(f"the overlap arm missed a fill kernel: {fill_launches}")
-        if jax["bytes"] != host_ns["bytes"]:
-            raise AssertionError("the jax arm's output differs from numpy --no-sealer")
-        if jax["site_eval_launches"] <= 0 or jax["scan_kernel_launches"] <= 0:
-            raise AssertionError("the jax arm did not launch site_eval and the scan")
+        if jax["bytes"] != host["bytes"]:
+            raise AssertionError("the jax arm's output differs from the numpy backend")
+        for arm in (jax, dbb):
+            if arm["gaps_found"] <= 0:
+                raise AssertionError("a jax arm's sealer found no gap")
+            if min(arm["site_eval_launches"], arm["scan_kernel_launches"],
+                   arm["dbg_extend4_launches"]) <= 0:
+                raise AssertionError("a jax arm did not launch site_eval, the scan "
+                                     "and the extension probe")
         if dbb["device_filled_batches"] != N_CONTIGS:
             raise AssertionError(f"device_bf_build filled {dbb['device_filled_batches']} "
                                  f"of {N_CONTIGS} batches on the card")
         dbb_fill = [dbb[f"fill_{op.__name__}_launches"] for op in bs.KERNEL_OPS]
         if min(dbb_fill) <= 0:
             raise AssertionError(f"the device_bf_build arm missed a fill kernel: {dbb_fill}")
-        if dbb["site_eval_launches"] <= 0 or dbb["scan_kernel_launches"] <= 0:
-            raise AssertionError("the device_bf_build arm did not launch site_eval "
-                                 "and the scan")
         if any(arm["plain_calls"] for arm in (on, off, ov, jax, dbb)):
             raise AssertionError("a plain version ran during a CUDA run")
+        # kernel 7 timed on the main path's own shapes: the jax arm's
+        # largest and median rounds, with that round's batch filter
+        by_size = sorted(jax["frontiers"], key=lambda f: f[4].shape[0])
+        ext_main = [probe_row(label, f) for label, f in (
+            ("main_jax_max", by_size[-1]), ("main_jax_median", by_size[len(by_size) // 2]))]
+        for row in ext_main:
+            row["max_abs_err"] = max(row["max_abs_err"], jax["probe_max_abs_err"],
+                                     dbb["probe_max_abs_err"])
+            emit(phase="kernel_dbg_extend4", **row)
+            if not row["equal"]:
+                raise AssertionError(f"dbg_extend4 disagrees with plain ({row['frontier']})")
         launches = {"scan_eval": on["scan_eval_launches"],
                     "scan_present_packed": off["scan_kernel_launches"],
                     "probe_lo32": on["probe_kernel_launches"],
                     "bloom_sort_fill": sum(fill_launches),
-                    "site_eval": dbb["site_eval_launches"]}
-        return launches, truths, fills
+                    "site_eval": dbb["site_eval_launches"],
+                    "dbg_extend4": jax["dbg_extend4_launches"]}
+        return launches, truths, fills, ext_main
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1307,8 +1406,111 @@ def phase_sealer(truths):
         raise AssertionError("the hybrid sealer launched no dbg_bfs kernel")
     if plain:
         raise AssertionError("the plain BFS ran during the CUDA sealer run")
-    # the kernel against its plain version (these launches are not counted above)
-    return launches, bfs_rows(bfs_by_k, log.searches[32])
+    frontiers = seal_jax(records, bfs_by_k, cfg, host_out, host_stats)
+    # the kernels against their plain versions (these launches are not
+    # counted above)
+    return (launches, bfs_rows(bfs_by_k, log.searches[32]),
+            probe_rows(frontiers, bfs_by_k, truths))
+
+
+def seal_jax(records, bfs_by_k, cfg, host_out, host_stats) -> list:
+    """seal_records with the jax backend on the card (the lockstep DeviceDBG,
+    one kernel 7 launch per round), required equal to the host search; the
+    counts set to 0 just before the run and read just after.  Returns every
+    round's arguments (ProbeLog.frontiers)."""
+    import torch
+
+    from goldpolish_tpu_torch.fill import sealer
+    from goldpolish_tpu_torch.ops import dbg_extend as de
+
+    de.dbg_extend4.launches.reset()
+    de.dbg_extend4_reference.calls.reset()
+    t = time.monotonic()
+    with ProbeLog() as log:
+        out, stats = sealer.seal_records(records, bfs_by_k, cfg, backend="jax",
+                                         device="cuda")
+    torch.cuda.synchronize()
+    jax_s = time.monotonic() - t
+    launches, plain = de.dbg_extend4.launches.value, de.dbg_extend4_reference.calls.value
+    emit(phase="sealer_jax", jax_s=jax_s, records_equal=out == host_out,
+         stats_equal=stats == host_stats, gaps_closed=stats["gaps_closed"],
+         dbg_extend4_launches=launches, plain_calls=plain, **log.summary())
+    if out != host_out or stats != host_stats:
+        raise AssertionError("jax seal_records differs from the host search")
+    if launches <= 0 or plain:
+        raise AssertionError(f"the jax sealer launched kernel 7 {launches} times, "
+                             f"its plain version {plain} times")
+    return log.frontiers
+
+
+def probe_row(label: str, args: tuple, reps: int = 50) -> dict:
+    """dbg_extend4 against its plain version on one frontier, args =
+    (words, bits, h, k, verts, n_succ): bit-equal, times, the bound
+    (vertices in, masks out, the filter words the probes need) and the L2
+    requests it sends (4 x R x h: all of an extension's first four hashes
+    are loaded together)."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import dbg_extend as de
+
+    words, bits, h, k, verts, n_succ = args
+    R = verts.shape[0]
+    got = de.dbg_extend4(*args)
+    want = de.dbg_extend4_reference(*args)
+    requests = 4 * R * h
+    return {
+        "frontier": label, "k": k, "rows": R, "n_succ": n_succ, "filter_bits": bits,
+        "equal": bool(torch.equal(got, want)),
+        "max_abs_err": int((got.int() - want.int()).abs().max().item()) if R else 0,
+        "present_share": float(
+            torch.stack([(want >> b) & 1 for b in range(4)]).float().mean().item()),
+        "l2_requests": requests,
+        "ms": time_ms(lambda: de.dbg_extend4(*args), reps),
+        "device_ms": device_ms(lambda: de.dbg_extend4(*args), reps),
+        "plain_ms": time_ms(lambda: de.dbg_extend4_reference(*args), 5, warm=1),
+        **bound(tensor_bytes(verts, want) + min(tensor_bytes(words), 4 * requests),
+                requests),
+    }
+
+
+def probe_rows(frontiers, bfs_by_k, truths) -> list[dict]:
+    """Kernel 7 against its plain version on every frontier of the jax
+    sealer run (required bit-equal; rows printed for the largest and the
+    median round at k = 32), then on synthetic batches of 2^16 vertices at
+    k = 32 and 20, cut from the truth with mixed bytes, on the 16 MiB
+    filter of the truth's k-mers and on a p = 0.75 filter whose bit count
+    is no power of two."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import bloom_device
+
+    err = frontier_err(frontiers)
+    emit(phase="kernel_dbg_extend4_frontiers", rounds=len(frontiers), max_abs_err=err)
+    if err:
+        raise AssertionError("dbg_extend4 disagrees with plain on a sealer frontier")
+    by_size = sorted((f for f in frontiers if f[3] == 32), key=lambda f: f[4].shape[0])
+    picks = [("sealer_max", by_size[-1]), ("sealer_median", by_size[len(by_size) // 2])]
+    rows = [probe_row(label, f) for label, f in picks]
+    rng = np.random.default_rng(SEED + 4)
+    genome = np.frombuffer("".join(t for _n, t in truths).encode(), np.uint8)
+    bits2 = NON_POW2_BYTES * 8
+    p75 = torch.from_numpy(random_words(rng, bits2)).cuda()
+    for k in (32, 20):
+        starts = rng.integers(0, len(genome) - k, 1 << 16)
+        verts = genome[starts[:, None] + np.arange(k)]
+        verts = np.where(rng.random(verts.shape) < 0.002, mixed_codes(rng, verts.shape),
+                         verts)
+        verts = torch.from_numpy(verts.astype(np.uint8)).cuda()
+        truth_words = bloom_device.to_device_words(bfs_by_k[k], "cuda")
+        for label, w, bits in (("synthetic_truth", truth_words, int(bfs_by_k[k].bits)),
+                               ("synthetic_p75_non_pow2", p75, bits2)):
+            rows.append(probe_row(label, (w, bits, 4, k, verts, 1 << 15), reps=20))
+    for row in rows:
+        emit(phase="kernel_dbg_extend4", **row)
+        if not row["equal"]:
+            raise AssertionError(f"dbg_extend4 disagrees with plain ({row['frontier']}, "
+                                 f"k={row['k']})")
+    return rows
 
 
 def main() -> int:
@@ -1348,8 +1550,8 @@ def main() -> int:
     # its own generator, so the other phases keep their inputs
     evals = phase_scan_eval(np.random.default_rng(SEED + 1))
     sites = phase_site_eval(np.random.default_rng(SEED + 3))
-    launches, truths, fills = phase_main(rng)
-    bfs_launches, bfs_rows = phase_sealer(truths)
+    launches, truths, fills, ext_main = phase_main(rng)
+    bfs_launches, bfs_rows, ext_rows = phase_sealer(truths)
     first = scans[0]
     # no single PyTorch call computes any of these functions: library_ms null
     # (PERF.md's kernel table gives the reason for each)
@@ -1410,6 +1612,15 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in sites),
             "ms": sites[0]["ms"], "plain_ms": sites[0]["plain_ms"],
             **{key: sites[0][key] for key in keys}, "library_ms": None,
+        },
+        {
+            "name": "dbg_extend4", "route": "cuda",
+            "source": "goldpolish_tpu_torch/csrc/dbg_extend.cu",
+            "replaces": "goldpolish_tpu/fill/konnector.py:265",
+            "launches": launches["dbg_extend4"],
+            "max_abs_err": max(r["max_abs_err"] for r in ext_main + ext_rows),
+            "ms": ext_main[0]["ms"], "plain_ms": ext_main[0]["plain_ms"],
+            **{key: ext_main[0][key] for key in keys}, "library_ms": None,
         },
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {

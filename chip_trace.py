@@ -20,11 +20,13 @@ CUDA event: kernels, copies, memsets), its idle share of the traced run,
 and device time by event name (largest first).  Last, one traced run of the
 smoke's sealer phase with the hybrid backend (kernel 3 by name).
 
---jax runs two other arms, both with --no-sealer: `default_no_sealer`
-(the CLI's default backend, hybrid, as above) and `jax_device_bf_build`
-(`--backend jax`, the packed scan and the site eval on the card with the
-Python walk, and PipelineConfig.device_bf_build: kernel 5 fills every
-batch), with the same runs and traces (no sealer trace).
+--jax runs the two jax arms instead, both with the sealer on: `jax`
+(`--backend jax`: the packed scan and the site eval on the card with the
+Python walk, the host fill, and the sealer's lockstep searches probing each
+BFS level with kernel 7) and `jax_device_bf_build` (the same with
+PipelineConfig.device_bf_build: kernel 5 fills every batch), with the same
+runs and traces (no sealer trace).  Every trace line also gives kernel 7's
+device time and launches in the traced run.
 
 --kernels times kernels 2 and 3 alone instead (chip_smoke.scan_rows and
 bfs_rows: every k on both filters, both BFS tiers on the sealer run's
@@ -50,8 +52,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ARMS = {"default": (None, ("--backend", "hybrid"), False),
         "fill_overlap": (None, ("--backend", "hybrid", "--fill-overlap"), False),
         "hybrid_eval_off": ("0", ("--backend", "hybrid"), False)}
-JAX_ARMS = {"default_no_sealer": (None, ("--backend", "hybrid", "--no-sealer"), False),
-            "jax_device_bf_build": (None, ("--backend", "jax", "--no-sealer"), True)}
+JAX_ARMS = {"jax": (None, ("--backend", "jax"), False),
+            "jax_device_bf_build": (None, ("--backend", "jax"), True)}
 
 
 def device_profile(events) -> dict:
@@ -70,7 +72,9 @@ def device_profile(events) -> dict:
             busy += b - end
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
+    probe = [dur for name, _start, dur in events if "dbg_extend4" in name]
     return {"device_busy_ms": busy / 1e6, "device_events": len(spans),
+            "probe_device_ms": sum(probe) / 1e6, "probe_device_launches": len(probe),
             "device_ms_by_name": {name: ns / 1e6 for name, ns in top}}
 
 
@@ -84,8 +88,8 @@ def main() -> int:
     mode.add_argument("--kernels", action="store_true",
                       help="time kernels 2 and 3 alone, no CLI run")
     mode.add_argument("--jax", action="store_true",
-                      help="the jax backend with device_bf_build against the "
-                           "default arm, both --no-sealer")
+                      help="the jax backend's two arms, host fill and "
+                           "device_bf_build, sealer on")
     args = ap.parse_args()
     arms = JAX_ARMS if args.jax else ARMS
     import torch

@@ -2,8 +2,8 @@
 reference driver.
 
 Port counterpart: goldpolish_tpu/cli.py, copied with these changes:
---backend takes hybrid (the default: the card), jax (the device site eval;
-needs --no-sealer until its sealer arm is ported) or numpy (the host path),
+--backend takes hybrid (the default: the card), jax (the device site eval
+and the sealer's lockstep device DBG) or numpy (the host path),
 --device picks where the hybrid and jax device work and the --fill-overlap
 device fill run (cuda, the default, raises without CUDA; cpu is for
 tests), and --target (targeted mode) raises until pipeline/targeted.py is
@@ -66,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Editor compute backend (default hybrid = the "
                         "fused scan and eval on --device + host walk; "
                         "jax = the dense scan and batched site eval on "
-                        "--device + Python walk, with --no-sealer; "
+                        "--device + Python walk, and the sealer's lockstep "
+                        "extension probes on --device; "
                         "numpy = the host path)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="Where the hybrid or jax device work and the "

@@ -61,8 +61,8 @@ class PipelineConfig:
     # new-framework knobs (no reference equivalent)
     # "hybrid" = the fused scan and eval on `device` + host walk (the
     # default: the card); "jax" = the packed scan and the batched site eval
-    # on `device` + the Python walk (the sealer must be off until its device
-    # arm is ported); "numpy" = the host path
+    # on `device` + the Python walk, and the sealer's lockstep extension
+    # probes on `device`; "numpy" = the host path
     backend: str = "hybrid"
     # device of the hybrid and jax device work and of the device fills:
     # "cuda" raises without CUDA (never a CPU fallback); "cpu" runs the

@@ -29,12 +29,15 @@ would alias distinct vertices) — the search logic is vertex-type-agnostic,
 so both representations share one implementation and produce identical
 results (pinned by tests/test_packed_kmers.py).
 
-Port counterpart: goldpolish_tpu/fill/konnector.py, copied with one cut:
-DeviceDBG (:233-315, K8 in ROADMAP.md queue 2) is not copied, because it
-probes through the JAX Bloom ops (K4).  The lockstep hooks it drives
+Port counterpart: goldpolish_tpu/fill/konnector.py, copied with one
+change: DeviceDBG (:233-315, K8) probes a lockstep round's frontier with
+the extension probe of ops/dbg_extend.py (kernel 7 on CUDA, its plain torch
+version on the CPU) on `device`, without the JAX call's shape bucket and
+host-built [rows, 4, k] extension rows.  The lockstep hooks it drives
 (_BidiSearch.run_while_cached / frontier / prefetch, connect_pairs_batch)
-stay as they are; on the probing DBG they reduce to the serial loop.  The
-device arm here is connect_pairs_batch_masks with ops/dbg_bfs.DeviceBFS.
+are the JAX package's; on the probing DBG they reduce to the serial loop.
+The other device arm is connect_pairs_batch_masks with
+ops/dbg_bfs.DeviceBFS.
 """
 
 from __future__ import annotations
@@ -235,6 +238,82 @@ def _packed_view(dbg: DBG) -> PackedDBG:
         view = PackedDBG(dbg)
         dbg._packed = view
     return view
+
+
+class DeviceDBG(DBG):
+    """DBG whose 4-way extension probes run batched on `device`.
+
+    The BFS bookkeeping (queue discipline, cost/branch limits, traversal
+    recording) stays on host and is byte-identical to the host DBG path —
+    graph membership is a pure function of the Bloom filter, so moving the
+    probes to the device cannot change any outcome.  _BidiSearch hands the
+    whole live frontier (both directions) to `prefetch` whenever it pops a
+    vertex whose probes are not cached, so one device call (ops/dbg_extend:
+    the extensions' hash and Bloom test) covers a whole BFS level; newly
+    discovered children batch into the next call.  Vertices stay k-char
+    strings (_prepare_search packs only for the plain DBG).
+
+    device "cuda" (the default) raises without CUDA, never a CPU fallback;
+    "cpu" runs the probe's plain torch version, for tests.  Each call's
+    upload, launch and copy back run on the current stream of the calling
+    thread, so batches may seal on several threads, each with its own
+    DeviceDBG per k.
+    """
+
+    def __init__(self, bf, k: int, device: str = "cuda"):
+        super().__init__(bf, k)
+        import torch
+
+        from ..ops import bloom_device
+
+        if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"DeviceDBG runs on device {device!r}, and CUDA is not available")
+        self.device = device
+        self._words = bloom_device.to_device_words(bf, device)
+        self._succ_cache: dict[str, int] = {}
+        self._pred_cache: dict[str, int] = {}
+
+    def is_cached(self, kmer: str, want_succ: bool) -> bool:
+        cache = self._succ_cache if want_succ else self._pred_cache
+        return kmer in cache
+
+    def prefetch(self, succ_vertices, pred_vertices) -> None:
+        """Probe the 4 extensions of every uncached vertex in one device
+        call and fill the caches with their 4-bit masks."""
+        import torch
+
+        from ..ops import dbg_extend
+
+        succs = [v for v in dict.fromkeys(succ_vertices) if v not in self._succ_cache]
+        preds = [v for v in dict.fromkeys(pred_vertices) if v not in self._pred_cache]
+        rows = len(succs) + len(preds)
+        if rows == 0:
+            return
+        verts = np.frombuffer("".join(succs + preds).encode(), np.uint8).reshape(
+            rows, self.k)
+        masks = dbg_extend.dbg_extend4(
+            self._words, int(self.bf.bits), self.h, self.k,
+            torch.from_numpy(verts.copy()).to(self.device), len(succs),
+        ).cpu().tolist()
+        self._succ_cache.update(zip(succs, masks))
+        self._pred_cache.update(zip(preds, masks[len(succs):]))
+
+    def successors(self, kmer: str) -> list[str]:
+        m = self._succ_cache.get(kmer)
+        if m is None:
+            self.prefetch([kmer], [])
+            m = self._succ_cache[kmer]
+        prefix = kmer[1:]
+        return [prefix + b for i, b in enumerate("ACGT") if m >> i & 1]
+
+    def predecessors(self, kmer: str) -> list[str]:
+        m = self._pred_cache.get(kmer)
+        if m is None:
+            self.prefetch([], [kmer])
+            m = self._pred_cache[kmer]
+        suffix = kmer[:-1]
+        return [b + suffix for i, b in enumerate("ACGT") if m >> i & 1]
 
 
 def get_start_kmer_pos(dbg: DBG, seq: str, num_matches_threshold: int = 3,

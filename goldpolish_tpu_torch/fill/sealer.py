@@ -22,10 +22,10 @@ subprojects/sealer/sealer.cpp) as used by the pipeline
 Byte-format quirk preserved: the reference always writes
 ">id<space>comment" even when the comment is empty.
 
-Port counterpart: goldpolish_tpu/fill/sealer.py, copied with two changes
-in seal_records: `device` picks where the hybrid arm's DeviceBFS runs
-("cuda", or "cpu" for the plain torch version in tests), and
-backend="jax" raises, because its DeviceDBG is K8 (ROADMAP.md queue 2).
+Port counterpart: goldpolish_tpu/fill/sealer.py, copied with one change
+in seal_records: `device` picks where the device arms run, the hybrid
+arm's DeviceBFS and the jax arm's DeviceDBG ("cuda", or "cpu" for the
+plain torch versions in tests).
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from dataclasses import dataclass, field
 
 from ..utils.log import get_logger
 from .konnector import (
-    DBG, ConnectPairsParams, NO_LIMIT, connect_pairs_batch, revcomp,
+    DBG, ConnectPairsParams, DeviceDBG, NO_LIMIT, connect_pairs_batch, revcomp,
 )
 
 log = get_logger("sealer")
@@ -154,15 +154,12 @@ def seal_records(records, bfs_by_k: dict[int, object], cfg: SealerConfig,
 
     backend="hybrid" computes every gap's extension masks with the
     whole-search BFS kernel (ops/dbg_bfs.DeviceBFS on `device`) and replays
-    the host search against them; outcomes are identical to the host DBG
-    (membership is a pure function of the Bloom filter).  backend="jax"
-    (the lockstep DeviceDBG, K8) is not ported and raises.
+    the host search against them.  backend="jax" runs every gap's search
+    in lockstep on a DeviceDBG (on `device`): one extension probe per BFS
+    level covers all the searches' frontiers.  Outcomes of both are
+    identical to the host DBG (membership is a pure function of the Bloom
+    filter).
     """
-    if backend == "jax":
-        raise NotImplementedError(
-            "seal_records(backend='jax') needs DeviceDBG, which is not ported "
-            "yet (K8 DBG probes, ROADMAP.md queue 2)"
-        )
     # collect flanks across all records, keyed like the reference's
     # map<FastaRecord(left), map<FastaRecord(right), Gap>> — outer key is
     # (record_id + "/1", left_seq), sorted iteration
@@ -190,6 +187,8 @@ def seal_records(records, bfs_by_k: dict[int, object], cfg: SealerConfig,
 
             dbg = DBG(bf, k)
             device_bfs = DeviceBFS(bf, k, device=device)
+        elif backend == "jax":
+            dbg = DeviceDBG(bf, k, device=device)
         else:
             dbg = DBG(bf, k)
         params = ConnectPairsParams(

@@ -1,18 +1,21 @@
-"""Device-resident Bloom filter words and the packed dense probe (K4).
+"""Device-resident Bloom filter words and the device probes and build (K4).
 
-Port counterpart: goldpolish_tpu/ops/bloom_jax.py, only what the editor's
-`jax` backend calls: `to_device_words` (:23) and `probe_kmers_packed`
-(:115).  The packed probe computes kernel 2's function (canonical ntHash of
-every k-window, h hashes, the filter test, presence packed 8 windows to a
-byte in little-endian bit order, pad bits 0), so it runs through
+Port counterpart: goldpolish_tpu/ops/bloom_jax.py: `to_device_words` (:23),
+`probe_words` (:28), `probe_kmers` (:45), `build_words` (:54) and
+`probe_kmers_packed` (:115); `counted_build_words` is not to port.  The
+packed probe computes kernel 2's function (canonical ntHash of every
+k-window, h hashes, the filter test, presence packed 8 windows to a byte in
+little-endian bit order, pad bits 0), so it runs through
 ops/scan_conv.scan_present_packed: the CUDA kernel for CUDA tensors, its
 plain torch version for CPU tensors.  probe_words, probe_kmers and
-build_words are not ported yet (the sealer's device arm needs them,
-ROADMAP.md queue 1); counted_build_words is not to port.
+build_words are plain torch code on tensors of any device: probe_kmers is
+the plain version of the sealer's extension probe (ops/dbg_extend.py),
+probe_words what the mesh (K9) will need, build_words completes K4.
 
-A bit count that is not a power of two is probed at the full 64-bit
-`hash % bits`; the JAX probe casts that index to uint32 (bloom_jax.py:39),
-which differs only for filters of 2^32 bits or more.
+Hashes are uint64 held in int64 lanes (ops/u64.py).  A bit count that is
+not a power of two is probed and set at the full 64-bit `hash % bits`; the
+JAX probe casts that index to uint32 (bloom_jax.py:39) and the JAX build to
+int32 (:67-69), which differ only for filters of 2^32 and 2^31 bits or more.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .scan_conv import scan_present_packed
+from . import nthash_device as ntd
+from .scan_conv import bit_index, probe_bit_reference, scan_present_packed
 
 MAX_ROWS = 65535  # kernel 2's rows per call (csrc/scan_conv.cu: grid.y)
 
@@ -30,6 +34,37 @@ def to_device_words(bf, device: str) -> torch.Tensor:
     little-endian uint32 words) to `device`."""
     words = np.ascontiguousarray(bf.words_u32()).view(np.int32)
     return torch.from_numpy(words.copy()).to(device)
+
+
+def probe_words(words: torch.Tensor, bits: int, hashes: torch.Tensor) -> torch.Tensor:
+    """Membership of hash tuples: hashes int64 [..., h] (uint64 bits) ->
+    bool [...], True where all h bits are set in words int32 [ceil(bits/32)]."""
+    return probe_bit_reference(words.to(torch.int64), bits, hashes).all(-1)
+
+
+def probe_kmers(words: torch.Tensor, bits: int, hash_num: int, k: int,
+                codes: torch.Tensor) -> torch.Tensor:
+    """Presence of every k-window of codes uint8 [..., n] -> bool [..., n-k+1]."""
+    base = ntd.canonical_hashes(codes, k)
+    return probe_words(words, bits, ntd.multi_hashes(base, k, hash_num))
+
+
+def build_words(bits: int, hashes: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+    """A plain filter's words from hash tuples: hashes int64 [..., h]
+    (uint64 bits), mask an optional bool [...] selecting the tuples to set
+    (the others set nothing).  Returns int32 [ceil(bits/32)] on the hashes'
+    device, the bits of the little-endian uint32 words."""
+    idx = bit_index(bits, hashes)
+    if mask is not None:
+        idx = idx[mask]
+    nwords = -(-bits // 32)
+    bitarr = torch.zeros(nwords * 32, dtype=torch.uint8, device=hashes.device)
+    bitarr[idx.reshape(-1)] = 1
+    pows = torch.ones(32, dtype=torch.int64, device=hashes.device) << torch.arange(
+        32, device=hashes.device)
+    words = (bitarr.view(nwords, 32).to(torch.int64) * pows).sum(1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
 
 
 def probe_kmers_packed(words: torch.Tensor, bits: int, hash_num: int, k: int,

@@ -49,7 +49,7 @@ import torch
 
 from . import bloom, u64
 from .cuda_build import LaunchCounter, check, lib, require_cuda
-from .scan_conv import _device_tables, _kmul, strand_hashes_reference
+from .scan_conv import _device_tables, _kmul, bit_index, strand_hashes_reference
 
 KHALO = 32      # the JAX build's row halo; it supports any k <= KHALO + 1
 MAX_THR = 15    # per-read thresholds must fit 4 bits (reference caps at 13)
@@ -108,7 +108,7 @@ def promote_hashes_reference(base: torch.Tensor, thr: torch.Tensor, k: int, h: i
     setbits = torch.zeros(bits, dtype=torch.bool, device=words.device)
     for hv in hs:
         hv = hv[ok]
-        setbits[hv & (bits - 1) if bits & (bits - 1) == 0 else u64.umod(hv, bits)] = True
+        setbits[bit_index(bits, hv)] = True
     weights = 1 << torch.arange(32, dtype=torch.int64, device=words.device)
     packed = (setbits.view(-1, 32).to(torch.int64) * weights).sum(dim=1)
     words |= (packed - ((packed >> 31) << 32)).to(torch.int32)  # wrap to int32

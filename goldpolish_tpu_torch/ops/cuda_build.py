@@ -144,6 +144,9 @@ def lib() -> ctypes.CDLL:
             vp, vp, vp, vp, vp,
         ]
         L.gp_site_eval.restype = i32
+        L.gp_dbg_extend4.argtypes = [vp, u64, i32, i32, vp, i64, i64, vp, vp, vp, vp, u64,
+                                     vp]
+        L.gp_dbg_extend4.restype = i32
         _LIB = L
         return L
 

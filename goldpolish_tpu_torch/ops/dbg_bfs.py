@@ -39,7 +39,7 @@ from . import u64
 from .cuda_build import LaunchCounter, check, lib, require_cuda
 # base codes 0..3 = A, C, G, T; the codec shared with the host packed search
 from .kmers import BASES, pack_kmer, unpack_kmer  # noqa: F401 (re-export)
-from .scan_conv import _kmul
+from .scan_conv import _kmul, probe_full_reference
 
 
 @functools.lru_cache(maxsize=64)
@@ -66,22 +66,6 @@ def _check_args(bits: int, h: int, k: int, W: int, V: int) -> None:
         raise ValueError(f"dbg_bfs packs k-mers into 64 bits (1 <= k <= 32), got k={k}")
     if h < 1 or not 1 <= bits < (1 << 62) or W < 1 or V < 1:
         raise ValueError(f"unsupported BFS parameters h={h} bits={bits} W={W} V={V}")
-
-
-def _bloom_has(words64: torch.Tensor, bits: int, h: int, k: int,
-               base: torch.Tensor) -> torch.Tensor:
-    """The h-hash Bloom test of canonical hashes `base` (JAX _probe :70-83)."""
-    kmul = _kmul(k)
-    pres = None
-    for i in range(h):
-        hv = base
-        if i:
-            t = base * u64.const(i ^ kmul)
-            hv = t ^ u64.lsr(t, nt.MULTI_SHIFT)
-        idx = hv & (bits - 1) if bits & (bits - 1) == 0 else u64.umod(hv, bits)
-        bit = ((words64[idx >> 5] >> (idx & 31)) & 1).bool()
-        pres = bit if pres is None else pres & bit
-    return pres
 
 
 def _first_visits(seen_lane, seen_k, lane, kmer) -> torch.Tensor:
@@ -146,7 +130,7 @@ def dbg_bfs_reference(words, bits: int, h: int, k: int, seed_k, seed_fh, seed_rh
                           u64.sror((ffh ^ F[inn])[:, None] ^ FK))
         crh = torch.where(fwd, u64.sror(frh[:, None] ^ RK ^ R[out][:, None]),
                           (u64.srol(frh) ^ RK[inn])[:, None] ^ R)
-        pres = _bloom_has(words64, bits, h, k, cfh + crh)  # [N, 4]
+        pres = probe_full_reference(words64, bits, cfh + crh, k, h)  # [N, 4]
         mask = (pres.to(torch.int64) << bases).sum(1)
         pos = n_vis[lane] + rank
         ok = pos < V

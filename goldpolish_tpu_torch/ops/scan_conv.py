@@ -112,10 +112,18 @@ def strand_hashes_reference(codes: torch.Tensor, k: int):
     return fh, rh
 
 
+def bit_index(bits: int, hv: torch.Tensor) -> torch.Tensor:
+    """The filter bit of each hash: a mask for a power-of-two filter, the
+    unsigned 64-bit `hash % bits` otherwise."""
+    if not 1 <= bits < (1 << 62):
+        raise ValueError(f"unsupported filter size: {bits} bits")
+    return hv & (bits - 1) if bits & (bits - 1) == 0 else u64.umod(hv, bits)
+
+
 def probe_bit_reference(words64: torch.Tensor, bits: int,
                         hv: torch.Tensor) -> torch.Tensor:
     """The filter bit of each hash (words64: the int32 words as int64)."""
-    idx = hv & (bits - 1) if bits & (bits - 1) == 0 else u64.umod(hv, bits)
+    idx = bit_index(bits, hv)
     return ((words64[idx >> 5] >> (idx & 31)) & 1).bool()
 
 

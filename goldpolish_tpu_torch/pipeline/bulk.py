@@ -16,9 +16,8 @@ Batches run concurrently under an asyncio pool with a strictly ordered
 writer and a checkpoint manifest (pipeline.engine).
 
 Port counterpart: goldpolish_tpu/pipeline/bulk.py, copied with these cuts,
-each raising at startup until ported (ROADMAP.md queue 1): the jax backend
-with the sealer on (its sealer arm is the device DBG, K8), the internal
-minimizer mapper, and multi-host runs.  device_bf_build (jax backend) fills
+each raising at startup until ported (ROADMAP.md queue 1): the internal
+minimizer mapper and multi-host runs.  device_bf_build (jax backend) fills
 every batch with kernel 5 on the config's device; the overlapped fill
 (--fill-overlap on the hybrid or jax backend, without device_bf_build)
 claims batches from the tail.  Repairs of the JAX code: a failed host hedge
@@ -28,7 +27,8 @@ ignores it there), and the startup k bound comes from bloom_sort.KHALO.
 The per-batch chain is the reference's whole chain; as in the JAX package,
 the sealer runs its host search for the numpy and hybrid backends alike
 (the whole-search device BFS is seal_records' hybrid arm, which bulk does
-not select).
+not select) and, on the jax backend, its lockstep searches on the device
+DBG (kernel 7 probes each BFS level on the config's device).
 """
 
 from __future__ import annotations
@@ -228,8 +228,9 @@ def polish_batch_records(records, builder: BFBuilder, cfg: PipelineConfig,
         sealed, seal_stats = sealer_mod.seal_records(
             prepped, bfs_by_k, scfg,
             # the host search for numpy and hybrid alike, as the JAX
-            # package passes; its jax arm (K8) is refused by check_ported
+            # package passes; the jax backend's lockstep device DBG
             backend="jax" if cfg.backend == "jax" else "numpy",
+            device=cfg.device,
         )
         timing["sealer_s"] = round(_time.monotonic() - t0, 3)
         stats["sealer"] = seal_stats
@@ -253,11 +254,11 @@ def make_builder(cfg: PipelineConfig, workdir: str) -> BFBuilder:
 
 
 def check_ported(cfg: PipelineConfig) -> None:
-    """Refuse, at startup, a configuration this port cannot run: not yet
-    (the jax backend's sealer arm), not at all (device_bf_build off the jax
-    backend, which the JAX package ignores silently), or not here (a device
-    backend on cuda without CUDA, never a CPU fallback; a fork pool beside
-    the card)."""
+    """Refuse, at startup, a configuration this port cannot run: not at all
+    (device_bf_build off the jax backend, which the JAX package ignores
+    silently; a k past the extension probe's bound on the jax backend's
+    sealer), or not here (a device backend on cuda without CUDA, never a
+    CPU fallback; a fork pool beside the card)."""
     if cfg.backend not in ("numpy", "hybrid", "jax"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
     if cfg.device_bf_build and cfg.backend != "jax":
@@ -266,10 +267,13 @@ def check_ported(cfg: PipelineConfig) -> None:
             "--fill-overlap for the device fill on the hybrid backend"
         )
     if cfg.backend == "jax" and cfg.run_sealer:
-        raise NotImplementedError(
-            "the jax backend's sealer arm (the device DBG, K8) is not ported "
-            "yet (ROADMAP.md queue 1): pass --no-sealer"
-        )
+        from ..ops.dbg_extend import MAX_K
+
+        if max(cfg.k_values) > MAX_K:
+            raise ValueError(
+                f"the jax backend's sealer probes k <= {MAX_K} on the device; "
+                f"got {cfg.k_values} — pass --no-sealer or drop the larger k"
+            )
     if cfg.process_pool and cfg.backend != "numpy":
         raise ValueError(
             "--process-pool requires --backend numpy (forked workers cannot "

@@ -33,6 +33,7 @@ _SLICE_MODULES = [
     "ops.kmers", "ops.dbg_bfs", "fill", "fill.nw", "fill.konnector",
     "fill.extend", "fill.sealer", "polish.reports", "ops.scan_eval",
     "ops.bloom_sort", "ops.nthash_device", "ops.bloom_device", "ops.siteeval_device",
+    "ops.dbg_extend",
 ]
 
 

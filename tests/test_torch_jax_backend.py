@@ -24,7 +24,7 @@ from goldpolish_tpu.polish import ntedit_oracle as jne
 from goldpolish_tpu.polish.ntedit_tpu import NtEditTPU
 from goldpolish_tpu_torch import cli
 from goldpolish_tpu_torch.config import PipelineConfig
-from goldpolish_tpu_torch.ops import bloom
+from goldpolish_tpu_torch.ops import bloom, dbg_extend
 from goldpolish_tpu_torch.ops import siteeval_device as sd
 from goldpolish_tpu_torch.pipeline import bulk
 from goldpolish_tpu_torch.polish import ntedit_oracle as ne
@@ -138,48 +138,85 @@ def _cfg(cls, inputs, tmp_path, name, **kw):
     return cls(seqs_to_polish=draft, polishing_seqs=reads,
                output_seqs=str(tmp_path / name), mappings_path=paf,
                k_values=[32, 24], batch_size=1, workspace=str(tmp_path),
-               max_concurrent_batches=2, run_sealer=False, **kw)
+               max_concurrent_batches=2, **{"run_sealer": False, **kw})
 
 
-@pytest.mark.parametrize("lookahead", [True, False])
-def test_run_bulk_device_bf_build_matches_jax_package(tmp_path, lookahead):
-    """run_bulk(backend="jax", device_bf_build=True, run_sealer=False): the
-    device fill of every batch (kernel 5's plain version) and the jax editor
-    arm write the JAX package's bytes for the same config (the device fills
-    are bit-equal by the port's contract); with the lookahead fill thread
-    and without it."""
+def _cut_gaps(draft: str) -> None:
+    """An N run and a lowercase span in every contig of a draft file, as
+    tests/test_sealer.py:185 cuts them (the sealer's gaps)."""
+    with open(draft) as f:
+        blocks = [b.split("\n")[:2] for b in f.read().split(">")[1:]]
+    with open(draft, "w") as f:
+        for head, seq in blocks:
+            seq = seq[:600] + "N" * 30 + seq[630:1300] + seq[1300:1340].lower() + seq[1340:]
+            f.write(f">{head}\n{seq}\n")
+
+
+@pytest.mark.parametrize("lookahead,sealer", [
+    pytest.param(True, False, id="True"), pytest.param(False, False, id="False"),
+    pytest.param(True, True, id="sealer"),
+])
+def test_run_bulk_device_bf_build_matches_jax_package(tmp_path, monkeypatch, lookahead,
+                                                      sealer):
+    """run_bulk(backend="jax", device_bf_build=True): the device fill of
+    every batch (kernel 5's plain version) and the jax editor arm write the
+    JAX package's bytes for the same config (the device fills are bit-equal
+    by the port's contract); with the lookahead fill thread and without it,
+    with the sealer off, and with it on (tests/test_pipeline.py:164 with
+    the sealer) over drafts with gaps cut in: its lockstep searches probe
+    through the extension probe's plain version."""
     from goldpolish_tpu.config import PipelineConfig as JaxConfig
     from goldpolish_tpu.pipeline import bulk as jbulk
 
     *inputs, truths = _synthetic(tmp_path, n_contigs=2, contig_len=2000)
-    common = dict(backend="jax", device_bf_build=True, lookahead_fill=lookahead)
+    if sealer:
+        _cut_gaps(inputs[0])
+    common = dict(backend="jax", device_bf_build=True, lookahead_fill=lookahead,
+                  run_sealer=sealer)
     jbulk.run_bulk(_cfg(JaxConfig, inputs, tmp_path, "want.fa", **common))
     calls = sd.eval_sites_device_reference.calls.value
+    probes = dbg_extend.dbg_extend4_reference.calls.value
+    seals = []
+    polish = bulk.polish_batch_records
+
+    def tallied(*args, **kw):
+        res = polish(*args, **kw)
+        seals.append(res.stats.get("sealer"))
+        return res
+
+    monkeypatch.setattr(bulk, "polish_batch_records", tallied)
     totals = bulk.run_bulk(_cfg(PipelineConfig, inputs, tmp_path, "got.fa",
                                 device="cpu", **common))
     got = open(tmp_path / "got.fa").read()
     assert got == open(tmp_path / "want.fa").read()
     assert totals["device_filled_batches"] == totals["batches"] == 2
     assert sd.eval_sites_device_reference.calls.value > calls
+    if sealer:
+        assert sum(s["gaps_found"] for s in seals) >= 4  # two cut into each draft
+        assert dbg_extend.dbg_extend4_reference.calls.value > probes
+    else:
+        assert seals == [None, None]
     recovered = [s.split("\n")[1] for s in got.split(">")[1:]]
     assert recovered == truths
 
 
 def test_startup_refusals(tmp_path):
-    """The jax backend with the sealer on, device_bf_build off the jax
-    backend and a device backend on cuda without CUDA raise at startup."""
+    """The jax backend with the sealer on runs (the CLI's jax arm, no
+    --no-sealer); device_bf_build off the jax backend and a device backend
+    on cuda without CUDA raise at startup."""
     import torch
 
-    *inputs, _truths = _synthetic(tmp_path, n_contigs=1)
-    argv = [inputs[0], inputs[1], str(tmp_path / "o.fa"),
+    *inputs, truths = _synthetic(tmp_path, n_contigs=1)
+    argv = [inputs[0], inputs[1], str(tmp_path / "jax.fa"),
             "--mappings", inputs[2], "--device", "cpu", "--backend", "jax"]
-    with pytest.raises(NotImplementedError, match="--no-sealer"):
-        cli.main(argv)
+    assert cli.main(argv) == 0
+    # the sealer writes ">id comment", the comment empty (the reference's quirk)
+    assert open(tmp_path / "jax.fa").read() == f">ctg0 \n{truths[0]}\n"
     for backend in ("hybrid", "numpy"):
         with pytest.raises(ValueError, match="device_bf_build"):
             bulk.run_bulk(_cfg(PipelineConfig, inputs, tmp_path, "o.fa", backend=backend,
                                device="cpu", device_bf_build=True))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
-            cli.main(argv[:-4] + ["--backend", "jax", "--no-sealer"])
+            cli.main(argv[:2] + [str(tmp_path / "o.fa")] + argv[3:-4] + ["--backend", "jax"])
     assert not os.path.exists(tmp_path / "o.fa")

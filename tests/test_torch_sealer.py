@@ -316,10 +316,23 @@ def test_seal_records_matches_jax(case):
 
 
 def test_seal_records_jax_backend_refuses():
-    _truth, ks, filt, records = _seal_scenario("n_gap")
-    with pytest.raises(NotImplementedError, match="K8"):
-        sealer.seal_records(records, {k: f[1] for k, f in filt.items()},
-                            sealer.SealerConfig(k_values=ks), backend="jax")
+    """backend="jax" (the lockstep DeviceDBG) refuses a CUDA device without
+    CUDA, never a CPU fallback; on device="cpu" it runs and equals the JAX
+    package's jax backend (tests/test_torch_device_dbg.py has the rest)."""
+    import torch
+
+    truth, ks, filt, records = _seal_scenario("n_gap")
+    bfs = {k: f[1] for k, f in filt.items()}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            sealer.seal_records(records, bfs, sealer.SealerConfig(k_values=ks),
+                                backend="jax")
+    out, stats = sealer.seal_records(records, bfs, sealer.SealerConfig(k_values=ks),
+                                     backend="jax", device="cpu")
+    assert (out, stats) == jsl.seal_records(
+        records, {k: f[0] for k, f in filt.items()}, jsl.SealerConfig(k_values=ks),
+        backend="jax")
+    assert stats["gaps_closed"] == 1 and out[0][1].upper() == truth
 
 
 # --- Greedy extension (tests/test_extend.py) ---------------------------------

@@ -232,10 +232,12 @@ def test_unported_paths_refuse(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="device_bf_build"):
         bulk.run_bulk(cfg)
     cfg.device_bf_build = False
+    # the jax backend with its sealer arm (the lockstep device DBG) runs
     jax_cfg = _golden(PipelineConfig, str(tmp_path), 1, run_sealer=True, backend="jax",
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="K8"):  # its sealer arm
-        bulk.run_bulk(jax_cfg)
+    assert bulk.run_bulk(jax_cfg)["contigs"] == 4
+    with open(jax_cfg.output_seqs, "rb") as f:
+        assert f.read() == _expected_golden()
     with pytest.raises(NotImplementedError, match="targeted"):
         cli.main(["d.fa", "r.fq", "o.fa", "--target", "--no-sealer"])
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
