@@ -36,7 +36,11 @@ raises and the script exits non-zero without the result line.
             outputs, for k in 32, 28, 24, 20, 341 and 21 insertion combos,
             against that draft's 4 MiB truth filter, the p = 0.75 filter
             and a p = 0.75 filter whose bit count is no power of two, with
-            the call's checked windows and L2 requests.  Times after
+            the call's checked windows and L2 requests (those kernel 6
+            sends, those of all h loads of every window, those of an exit
+            at each window's first clear bit), then at k = 32 and 341
+            combos with h = 1, 3, 5 and 8 on a truth filter of that h and
+            the two p = 0.75 filters.  Times after
             warm-up: `ms` and `plain_ms` per call of back-to-back calls
             between two CUDA events (host included), `device_ms` the
             device time per call (the profiler's summed CUDA events; null
@@ -54,8 +58,9 @@ raises and the script exits non-zero without the result line.
             the hybrid arms with GPTPU_FORCE_DEVICE_SCAN=1.  Then the two
             jax arms, sealer on: `--backend jax` (the packed scan and
             site_eval on the card, the Python walk, the host fill, and the
-            sealer's lockstep searches probing each BFS level with
-            dbg_extend4, kernel 7) and the same config with
+            sealer's lockstep searches, each round walking the unbranched
+            chains from its frontier with dbg_extend_chain, kernel 7, for
+            up to dbg_extend.CHAIN_STEPS levels) and the same config with
             PipelineConfig.device_bf_build (kernel 5 fills every batch).
             Requires the first three outputs and the jax arm's
             byte-identical; the default arm: scan_eval launches > 0, walker
@@ -64,7 +69,7 @@ raises and the script exits non-zero without the result line.
             filters, both fill kernels launched (its bytes' equality with
             the default arm is reported, not required: the device filter is
             a superset of the host fill's); both jax arms: gaps found,
-            site_eval, scan and dbg_extend4 launches > 0; the
+            site_eval, scan and kernel 7 launches > 0; the
             device_bf_build arm: 4 of 4 batches filled on the card and both
             fill kernels launched (its bytes' equality with the jax arm and
             its share of contigs equal to the truth are reported); no
@@ -73,13 +78,15 @@ raises and the script exits non-zero without the result line.
             wall time, Bloom-fill seconds (`bf_build_s` inline,
             `bf_fill_bg_s` on the lookahead thread), ntEdit stage sum,
             table hits / giveups, launch and plain-call counts, the
-            sealer's seconds and gaps found / closed, and the extension
-            probe's lockstep rounds per k with the median and largest rows
-            (vertices) per round.  After both jax arms, every round they
-            probed (its vertices, n_succ and its batch's filter words, kept
-            by ProbeLog) goes through dbg_extend4 and its plain version
-            again, required bit-equal; the jax arm's largest and median
-            rounds are timed (`kernel_dbg_extend4` rows `main_jax_*`).
+            sealer's seconds and gaps found / closed, and the chain
+            probe's lockstep rounds per k and per k and batch, the median
+            and largest rows (vertices) per round and the levels walked.
+            After both jax arms, every round they probed (its vertices,
+            n_succ, D and its batch's filter words, kept by ProbeLog) goes
+            through dbg_extend_chain and its plain version again, masks and
+            lengths required bit-equal; the jax arm's largest and median
+            rounds are timed (`kernel_dbg_extend_chain` rows
+            `main_jax_*`).
             Before the arms, the fill phase: for each of the 4 batches
             (bulk's builder and read choice: ~1,900 reads, ~11.6 Mbases,
             a 10 MiB counting filter and a 4 MiB filter per k), the device
@@ -98,7 +105,7 @@ raises and the script exits non-zero without the result line.
             jax on the card (the lockstep DeviceDBG, every round's frontier
             recorded).  Requires equal records and stats, dbg_bfs launches
             > 0 and no plain-version call during the hybrid run, and
-            dbg_extend4 launches > 0 and no plain call during the jax run.
+            kernel 7 launches > 0 and no plain call during the jax run.
             Then dbg_bfs (the whole-search BFS
             kernel) against its plain version on the first 256 k = 32
             searches of that run and on a mixed batch of 9 searches
@@ -107,20 +114,21 @@ raises and the script exits non-zero without the result line.
             both run tiers (W = 32 and 256), required equal as
             per-direction (k-mer, mask) sets with their counts and overflow
             flags; each row has `levels` (the deepest level any search
-            reached) and the device time per level.  Then dbg_extend4 (the
-            extension probe) against its plain version on every recorded
-            frontier of the jax run (rows for its largest and median k = 32
-            rounds) and on synthetic batches of 2^16 vertices (half of them
-            successor rows) cut from the truth with a few mixed bytes, at
-            k = 32 and 20, on the 16 MiB truth filter and on a p = 0.75
-            filter whose bit count is no power of two, required bit-equal,
-            with the L2 requests the kernel sends (4 x R x h).
+            reached) and the device time per level.  Then kernel 7 against
+            its plain version on every recorded chain round of the jax run
+            (rows for its largest and median k = 32 rounds) and on
+            synthetic batches of 2^16 vertices (half of them successor
+            rows) cut from the truth with a few mixed bytes, at k = 32 and
+            20, on the 16 MiB truth filter and on a p = 0.75 filter whose
+            bit count is no power of two, each at D = 1 (dbg_extend4) and
+            at the DeviceDBG's D (dbg_extend_chain), required bit-equal,
+            with the L2 requests the kernel sends (4 x h a row a level).
 
 Then a {"kernels": [...]} line (launches counted on the path each kernel
 serves: the main path's default arm for scan_eval, its eval-off arm for
 the scan, its overlap arm for the fill (the sum of its two wrappers), its
-device_bf_build arm for site_eval, its jax arm for dbg_extend4 (timed on
-that arm's largest round), phase 5 for the BFS; the probe is fused
+device_bf_build arm for site_eval, its jax arm for dbg_extend_chain (timed
+on that arm's largest round), phase 5 for the BFS; the probe is fused
 into all of them and launches nothing on its own; each kernel's bound from
 its call's own inputs, see HBM_BYTES_PER_S), and last the line
 {"ok": true, "device": {"platform": "gpu", ...}}.
@@ -544,22 +552,26 @@ def hot_sites(draft: np.ndarray, bf, k: int) -> np.ndarray:
 
 
 def site_eval_requests(words, bits: int, h: int, codes, n: int, sites, tables,
-                       C: int) -> tuple[int, int]:
-    """(checked windows, the filter words they need when a window stops at
-    its first clear bit) of a site eval call: its plain version with the
-    window probe counted (on the tensors' device)."""
+                       C: int) -> tuple[int, int, int]:
+    """(checked windows, the filter words kernel 6 loads for them, the
+    words they need when a window stops at its first clear bit) of a site
+    eval call: its plain version with the window probe counted (on the
+    tensors' device).  Kernel 6 loads every window's first hash, then
+    hashes 1-3, 4-6, ... of the windows still alive, three at a time."""
     import torch
 
     from goldpolish_tpu_torch.ops import siteeval_device as sd
 
-    probe, tally = sd._window_probes, [0, 0]
+    probe, tally = sd._window_probes, [0, 0, 0]
 
     def counted(words64, bits_, patches, k, h_, j_idx):
         base = sd.ntd.canonical_hashes(patches, k)[..., j_idx]
         bit = sd.probe_bit_reference(words64, bits_, sd.ntd.multi_hashes(base, k, h_))
         alive = bit.to(torch.int32).cumprod(-1)  # alive after each hash
         tally[0] += base.numel()
-        tally[1] += base.numel() + int(alive[..., :-1].sum().item())
+        tally[1] += base.numel() + sum(int(alive[..., i1 - 1].sum().item()) * min(3, h_ - i1)
+                                       for i1 in range(1, h_, 3))
+        tally[2] += base.numel() + int(alive[..., :-1].sum().item())
         return bit.all(-1)
 
     sd._window_probes = counted
@@ -567,13 +579,19 @@ def site_eval_requests(words, bits: int, h: int, codes, n: int, sites, tables,
         sd.eval_sites_device_reference(words, bits, h, codes, n, sites, tables, C)
     finally:
         sd._window_probes = probe
-    return tally[0], tally[1]
+    return tally[0], tally[1], tally[2]
+
+
+SITE_EVAL_H = (1, 3, 5, 8)  # hash counts checked beside the main path's 4
 
 
 def phase_site_eval(rng):
     """site_eval (the batched site eval, K7) against its plain version at
     the main path's call shape (see the module docstring), required
-    bit-equal on all four outputs."""
+    bit-equal on all four outputs; then at k = 32 with other hash counts
+    (SITE_EVAL_H) on a truth filter of that h and the two p = 0.75 filters,
+    where the first-bit test and the later rounds of loads take other
+    shares of the windows."""
     import torch
 
     from goldpolish_tpu_torch.ops import bloom
@@ -591,25 +609,29 @@ def phase_site_eval(rng):
     bits2 = NON_POW2_BYTES * 8
     filters = {"p75": (torch.from_numpy(random_words(rng, FILTER_BITS)).to(dev), FILTER_BITS),
                "non_pow2": (torch.from_numpy(random_words(rng, bits2)).to(dev), bits2)}
+
+    def truth_words(k: int, h: int):
+        bf = bloom.BloomFilter(FILTER_BITS // 8, h, k)
+        bf.insert(nt.multi_hashes(nt.canonical_hashes(truth, k), k, h))
+        return bf, torch.from_numpy(bf.words_u32().view(np.int32).copy()).to(dev)
+
     rows = []
     for k in K_VALUES:
         cfg = ntedit_config_for_k(k)
         tables = siteeval.make_tables(k, cfg.jump, cfg.max_insertions, cfg.max_deletions)
-        bf = bloom.BloomFilter(FILTER_BITS // 8, 4, k)
-        bf.insert(nt.multi_hashes(nt.canonical_hashes(truth, k), k, 4))
+        bf, words_k = truth_words(k, 4)
         sites_np = hot_sites(draft, bf, k)
         sites = torch.from_numpy(sites_np).to(dev)
-        truth_words = torch.from_numpy(bf.words_u32().view(np.int32).copy()).to(dev)
-        for label, (words, bits) in {"truth": (truth_words, FILTER_BITS), **filters}.items():
+        for label, (words, bits) in {"truth": (words_k, FILTER_BITS), **filters}.items():
             for C in (tables.n_combos, TIER0_COMBOS):
                 args = (words, bits, 4, codes, len(draft), sites, tables, C)
                 got = sd.site_eval(*args)
                 want = sd.eval_sites_device_reference(*args)
-                windows, requests = site_eval_requests(*args)
+                windows, requests, needed = site_eval_requests(*args)
                 dev_ms = device_ms(lambda: sd.site_eval(*args), 20)
                 ctx_bytes = len(sites_np) * (2 * k - 1 + tables.max_del)
                 row = {
-                    "k": k, "filter": label, "sites": len(sites_np), "combos": C,
+                    "k": k, "h": 4, "filter": label, "sites": len(sites_np), "combos": C,
                     "near_end_site": int(sites_np[-1]), "draft_bp": len(draft),
                     "equal": all(g.shape == w.shape and torch.equal(g, w)
                                  for g, w in zip(got, want)),
@@ -617,25 +639,50 @@ def phase_site_eval(rng):
                                        for g, w in zip(got, want)),
                     "gate_share": float(want[0].float().mean().item()),
                     "checked_windows": windows,
-                    # the random L2 requests: those the design sends (all h
-                    # loads of a window) and those an early exit would need
-                    "l2_requests": 4 * windows, "l2_requests_min": requests,
-                    "request_floor_ms": 4 * windows / L2_REQUESTS_PER_S * 1e3,
-                    "l2_requests_per_s": 4 * windows / (dev_ms * 1e-3) if dev_ms else None,
+                    # the random L2 requests: those the design sends, those
+                    # of all h loads of every window (the first design) and
+                    # those an early exit at each window's first clear bit
+                    # would need
+                    "l2_requests": requests, "l2_requests_all_h": 4 * windows,
+                    "l2_requests_min": needed,
+                    "request_floor_ms": requests / L2_REQUESTS_PER_S * 1e3,
+                    "l2_requests_per_s": requests / (dev_ms * 1e-3) if dev_ms else None,
                     "ms": time_ms(lambda: sd.site_eval(*args), 20),
                     "device_ms": dev_ms,
                     "plain_ms": time_ms(lambda: sd.eval_sites_device_reference(*args),
                                         3, warm=1),
                     # bytes: the filter words the probes need (at most the
-                    # filter), each site's context, the sites, the outputs
-                    **bound(min(tensor_bytes(words), 4 * requests) + ctx_bytes
-                            + tensor_bytes(sites, *want), 4 * windows),
+                    # filter), each site's context, the sites, the outputs;
+                    # operations: the hash values those probes need
+                    **bound(min(tensor_bytes(words), 4 * needed) + ctx_bytes
+                            + tensor_bytes(sites, *want), needed),
                 }
                 rows.append(row)
                 emit(phase="kernel_site_eval", **row)
                 if not row["equal"]:
                     raise AssertionError(
                         f"site_eval disagrees with plain at k={k}, C={C} ({label})")
+        if k != 32:
+            continue
+        for h in SITE_EVAL_H:
+            for label, (words, bits) in {"truth": (truth_words(k, h)[1], FILTER_BITS),
+                                         **filters}.items():
+                args = (words, bits, h, codes, len(draft), sites, tables, tables.n_combos)
+                got = sd.site_eval(*args)
+                want = sd.eval_sites_device_reference(*args)
+                windows, requests, needed = site_eval_requests(*args)
+                row = {"k": k, "h": h, "filter": label, "combos": tables.n_combos,
+                       "equal": all(g.shape == w.shape and torch.equal(g, w)
+                                    for g, w in zip(got, want)),
+                       "max_abs_err": max(int((g.int() - w.int()).abs().max().item())
+                                          for g, w in zip(got, want)),
+                       "checked_windows": windows, "l2_requests": requests,
+                       "l2_requests_all_h": h * windows, "l2_requests_min": needed}
+                rows.append(row)
+                emit(phase="kernel_site_eval_h", **row)
+                if not row["equal"]:
+                    raise AssertionError(
+                        f"site_eval disagrees with plain at k={k}, h={h} ({label})")
     return rows
 
 
@@ -843,56 +890,74 @@ class WalkTally:
 
 
 class ProbeLog:
-    """Records every extension probe (kernel 7) call while the jax
-    backend's sealer runs: wraps ops/dbg_extend.dbg_extend4, which
+    """Records every chain probe (kernel 7) call while the jax backend's
+    sealer runs: wraps ops/dbg_extend.dbg_extend_chain, which
     DeviceDBG.prefetch looks up per lockstep round (batches seal on several
     threads), and keeps each round's arguments (words, bits, h, k, the
-    vertices on the card, n_succ) for frontier_err."""
+    vertices on the card, n_succ, D) and output for chain_err and the
+    summary."""
 
     def __init__(self):
         from goldpolish_tpu_torch.ops import dbg_extend
 
         self.mod = dbg_extend
-        self.inner = dbg_extend.dbg_extend4
-        self.rounds: list[tuple[int, int]] = []  # (k, R) per call
+        self.inner = dbg_extend.dbg_extend_chain
         self.frontiers: list[tuple] = []  # each call's arguments
+        self.outs: list = []  # each call's output, on the card
         self._lock = threading.Lock()
 
     def __call__(self, *args):
-        _words, _bits, _h, k, verts, _n_succ = args
+        out = self.inner(*args)
         with self._lock:
-            self.rounds.append((k, verts.shape[0]))
             self.frontiers.append(args)
-        return self.inner(*args)
+            self.outs.append(out)
+        return out
 
     def __enter__(self):
-        self.mod.dbg_extend4 = self
+        self.mod.dbg_extend_chain = self
         return self
 
     def __exit__(self, *exc):
-        self.mod.dbg_extend4 = self.inner
+        self.mod.dbg_extend_chain = self.inner
 
     def summary(self) -> dict:
-        """Lockstep rounds per k, and the median and largest rows per round."""
-        rows = sorted(r for _k, r in self.rounds)
+        """Lockstep rounds per k, and per k and DeviceDBG (one per batch and
+        k: each has its own filter words); rows per round (median, largest,
+        total); levels walked (the chains' summed lengths, and the rows
+        whose chain ran the full D)."""
+        rows = sorted(args[4].shape[0] for args in self.frontiers)
         per_k: dict[str, int] = {}
-        for k, _r in self.rounds:
+        per_dbg: dict[tuple, int] = {}
+        for words, _bits, _h, k, *_rest in self.frontiers:
             per_k[str(k)] = per_k.get(str(k), 0) + 1
+            per_dbg[(k, words.data_ptr())] = per_dbg.get((k, words.data_ptr()), 0) + 1
+        per_batch: dict[str, list[int]] = {}
+        for (k, _ptr), n in per_dbg.items():
+            per_batch.setdefault(str(k), []).append(n)
+        lens = [out[:, -1].cpu() for out in self.outs]
+        steps = [args[6] for args in self.frontiers]
         return {"probe_rounds": per_k,
+                "probe_rounds_per_batch": {k: sorted(v) for k, v in per_batch.items()},
                 "probe_rows_median": rows[len(rows) // 2] if rows else None,
                 "probe_rows_max": rows[-1] if rows else None,
-                "probe_rows_total": sum(rows)}
+                "probe_rows_total": sum(rows),
+                "chain_steps": sorted(set(steps)),
+                "levels_walked": int(sum(int(n.sum()) for n in lens)),
+                "rows_full_chain": int(sum(int((n == d).sum()) for n, d in zip(lens, steps)))}
 
 
-def frontier_err(frontiers) -> int:
-    """Kernel 7 against its plain version on recorded frontiers, each with
-    the words of the call that recorded it: the largest |kernel - plain|."""
+def chain_err(frontiers) -> int:
+    """Kernel 7 against its plain version on recorded chain rounds, each
+    with the words of the call that recorded it: the largest |kernel -
+    plain| over the masks and lengths."""
     from goldpolish_tpu_torch.ops import dbg_extend as de
 
     err = 0
     for args in frontiers:
-        got, want = de.dbg_extend4(*args), de.dbg_extend4_reference(*args)
-        err = max(err, int((got.int() - want.int()).abs().max().item()))
+        got, want = de.dbg_extend_chain(*args), de.dbg_extend_chain_reference(*args)
+        if got.shape != want.shape:
+            return 1 << 8
+        err = max(err, int((got.int() - want.int()).abs().max().item()) if got.numel() else 0)
     return err
 
 
@@ -910,13 +975,14 @@ def main_counters() -> dict:
         "scan_eval_launches": se.scan_eval.launches,
         "scan_kernel_launches": sc.scan_present_packed.launches,
         "site_eval_launches": sd.site_eval.launches,
-        "dbg_extend4_launches": de.dbg_extend4.launches,
+        "dbg_extend_launches": de.dbg_extend_chain.launches,
         "probe_kernel_launches": bp.probe_lo32.launches,
         **{f"fill_{op.__name__}_launches": op.launches for op in bs.KERNEL_OPS},
         "plain_scan_eval": se.scan_eval_reference.calls,
         "plain_scan": sc.scan_present_packed_reference.calls,
         "plain_site_eval": sd.eval_sites_device_reference.calls,
         "plain_dbg_extend4": de.dbg_extend4_reference.calls,
+        "plain_dbg_extend_chain": de.dbg_extend_chain_reference.calls,
         "plain_probe": bp.probe_lo32_reference.calls,
         **{f"plain_fill_{op.__name__}": op.calls for op in bs.PLAIN_OPS},
     }
@@ -1030,8 +1096,9 @@ def phase_main(rng):
         host = run_arm(inp, "numpy", {}, "--backend", "numpy")
         ov = run_arm(inp, "fill_overlap", {**FORCE, "GPTPU_DEVICE_EVAL": None},
                      "--fill-overlap")
-        # the jax backend with the sealer (its lockstep searches probe each
-        # BFS level with kernel 7), with the host fill and with device_bf_build
+        # the jax backend with the sealer (its lockstep searches walk the
+        # unbranched chains from each round's frontier with kernel 7), with
+        # the host fill and with device_bf_build
         jax = run_arm(inp, "jax", {}, "--backend", "jax")
         dbb = run_arm(inp, "jax_device_bf_build", {}, "--backend", "jax",
                       device_bf_build=True)
@@ -1039,12 +1106,12 @@ def phase_main(rng):
         # that ran it, held against the plain version after the arms' counts
         # were read (these launches are not counted)
         for name, arm in (("jax", jax), ("jax_device_bf_build", dbb)):
-            arm["probe_max_abs_err"] = frontier_err(arm["frontiers"])
-            emit(phase="kernel_dbg_extend4_main", arm=name,
+            arm["probe_max_abs_err"] = chain_err(arm["frontiers"])
+            emit(phase="kernel_dbg_extend_chain_main", arm=name,
                  rounds=len(arm["frontiers"]), max_abs_err=arm["probe_max_abs_err"])
             if arm["probe_max_abs_err"]:
-                raise AssertionError("dbg_extend4 disagrees with plain on a main-path "
-                                     "frontier")
+                raise AssertionError("the chain probe disagrees with plain on a "
+                                     "main-path round")
         emit(phase="main_check", default_equals_numpy=on["bytes"] == host["bytes"],
              eval_off_equals_numpy=off["bytes"] == host["bytes"],
              output_bytes=len(on["bytes"]),
@@ -1077,7 +1144,7 @@ def phase_main(rng):
             if arm["gaps_found"] <= 0:
                 raise AssertionError("a jax arm's sealer found no gap")
             if min(arm["site_eval_launches"], arm["scan_kernel_launches"],
-                   arm["dbg_extend4_launches"]) <= 0:
+                   arm["dbg_extend_launches"]) <= 0:
                 raise AssertionError("a jax arm did not launch site_eval, the scan "
                                      "and the extension probe")
         if dbb["device_filled_batches"] != N_CONTIGS:
@@ -1091,20 +1158,21 @@ def phase_main(rng):
         # kernel 7 timed on the main path's own shapes: the jax arm's
         # largest and median rounds, with that round's batch filter
         by_size = sorted(jax["frontiers"], key=lambda f: f[4].shape[0])
-        ext_main = [probe_row(label, f) for label, f in (
+        ext_main = [chain_row(label, f) for label, f in (
             ("main_jax_max", by_size[-1]), ("main_jax_median", by_size[len(by_size) // 2]))]
         for row in ext_main:
             row["max_abs_err"] = max(row["max_abs_err"], jax["probe_max_abs_err"],
                                      dbb["probe_max_abs_err"])
-            emit(phase="kernel_dbg_extend4", **row)
+            emit(phase="kernel_dbg_extend_chain", **row)
             if not row["equal"]:
-                raise AssertionError(f"dbg_extend4 disagrees with plain ({row['frontier']})")
+                raise AssertionError(f"the chain probe disagrees with plain "
+                                     f"({row['frontier']})")
         launches = {"scan_eval": on["scan_eval_launches"],
                     "scan_present_packed": off["scan_kernel_launches"],
                     "probe_lo32": on["probe_kernel_launches"],
                     "bloom_sort_fill": sum(fill_launches),
                     "site_eval": dbb["site_eval_launches"],
-                    "dbg_extend4": jax["dbg_extend4_launches"]}
+                    "dbg_extend": jax["dbg_extend_launches"]}
         return launches, truths, fills, ext_main
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -1423,32 +1491,33 @@ def seal_jax(records, bfs_by_k, cfg, host_out, host_stats) -> list:
     from goldpolish_tpu_torch.fill import sealer
     from goldpolish_tpu_torch.ops import dbg_extend as de
 
-    de.dbg_extend4.launches.reset()
-    de.dbg_extend4_reference.calls.reset()
+    plains = (de.dbg_extend4_reference.calls, de.dbg_extend_chain_reference.calls)
+    for c in (de.dbg_extend_chain.launches, *plains):
+        c.reset()
     t = time.monotonic()
     with ProbeLog() as log:
         out, stats = sealer.seal_records(records, bfs_by_k, cfg, backend="jax",
                                          device="cuda")
     torch.cuda.synchronize()
     jax_s = time.monotonic() - t
-    launches, plain = de.dbg_extend4.launches.value, de.dbg_extend4_reference.calls.value
+    launches, plain = de.dbg_extend_chain.launches.value, sum(c.value for c in plains)
     emit(phase="sealer_jax", jax_s=jax_s, records_equal=out == host_out,
          stats_equal=stats == host_stats, gaps_closed=stats["gaps_closed"],
-         dbg_extend4_launches=launches, plain_calls=plain, **log.summary())
+         dbg_extend_launches=launches, plain_calls=plain, **log.summary())
     if out != host_out or stats != host_stats:
         raise AssertionError("jax seal_records differs from the host search")
     if launches <= 0 or plain:
         raise AssertionError(f"the jax sealer launched kernel 7 {launches} times, "
-                             f"its plain version {plain} times")
+                             f"its plain versions {plain} times")
     return log.frontiers
 
 
 def probe_row(label: str, args: tuple, reps: int = 50) -> dict:
-    """dbg_extend4 against its plain version on one frontier, args =
-    (words, bits, h, k, verts, n_succ): bit-equal, times, the bound
-    (vertices in, masks out, the filter words the probes need) and the L2
-    requests it sends (4 x R x h: all of an extension's first four hashes
-    are loaded together)."""
+    """dbg_extend4 (kernel 7 at D = 1) against its plain version on one
+    frontier, args = (words, bits, h, k, verts, n_succ): bit-equal, times,
+    the bound (vertices in, masks out, the filter words the probes need)
+    and the L2 requests it sends (4 x R x h: all of an extension's first
+    four hashes are loaded together)."""
     import torch
 
     from goldpolish_tpu_torch.ops import dbg_extend as de
@@ -1459,8 +1528,8 @@ def probe_row(label: str, args: tuple, reps: int = 50) -> dict:
     want = de.dbg_extend4_reference(*args)
     requests = 4 * R * h
     return {
-        "frontier": label, "k": k, "rows": R, "n_succ": n_succ, "filter_bits": bits,
-        "equal": bool(torch.equal(got, want)),
+        "frontier": label, "k": k, "rows": R, "n_succ": n_succ, "steps": 1,
+        "filter_bits": bits, "equal": bool(torch.equal(got, want)),
         "max_abs_err": int((got.int() - want.int()).abs().max().item()) if R else 0,
         "present_share": float(
             torch.stack([(want >> b) & 1 for b in range(4)]).float().mean().item()),
@@ -1473,24 +1542,60 @@ def probe_row(label: str, args: tuple, reps: int = 50) -> dict:
     }
 
 
+def chain_row(label: str, args: tuple, reps: int = 50) -> dict:
+    """dbg_extend_chain against its plain version on one round, args =
+    (words, bits, h, k, verts, n_succ, D): bit-equal masks and lengths,
+    the levels walked (the summed chain lengths) and the longest chain,
+    times (and the device time per level of the longest chain, the
+    dependent L2 round trips), the L2 requests (4 x h a row a level) and
+    the bound (vertices in, masks and lengths out, the filter words those
+    requests need)."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import dbg_extend as de
+
+    words, bits, h, k, verts, n_succ, steps = args
+    R = verts.shape[0]
+    got = de.dbg_extend_chain(*args)
+    want = de.dbg_extend_chain_reference(*args)
+    lens = want[:, -1].long()
+    levels, longest = int(lens.sum()), int(lens.max()) if R else 0
+    requests = 4 * h * levels
+    dev_ms = device_ms(lambda: de.dbg_extend_chain(*args), reps)
+    return {
+        "frontier": label, "k": k, "rows": R, "n_succ": n_succ, "steps": steps,
+        "filter_bits": bits, "equal": bool(torch.equal(got, want)),
+        "max_abs_err": int((got.int() - want.int()).abs().max().item()) if R else 0,
+        "levels": levels, "longest_chain": longest,
+        "full_chains": int((lens == steps).sum()), "l2_requests": requests,
+        "ms": time_ms(lambda: de.dbg_extend_chain(*args), reps),
+        "device_ms": dev_ms,
+        "device_us_per_level": dev_ms * 1e3 / max(1, longest) if dev_ms else None,
+        "plain_ms": time_ms(lambda: de.dbg_extend_chain_reference(*args), 3, warm=1),
+        **bound(tensor_bytes(verts, want) + min(tensor_bytes(words), 4 * requests),
+                requests),
+    }
+
+
 def probe_rows(frontiers, bfs_by_k, truths) -> list[dict]:
-    """Kernel 7 against its plain version on every frontier of the jax
+    """Kernel 7 against its plain version on every chain round of the jax
     sealer run (required bit-equal; rows printed for the largest and the
     median round at k = 32), then on synthetic batches of 2^16 vertices at
     k = 32 and 20, cut from the truth with mixed bytes, on the 16 MiB
     filter of the truth's k-mers and on a p = 0.75 filter whose bit count
-    is no power of two."""
+    is no power of two, at D = 1 (dbg_extend4) and at the DeviceDBG's D."""
     import torch
 
     from goldpolish_tpu_torch.ops import bloom_device
+    from goldpolish_tpu_torch.ops import dbg_extend as de
 
-    err = frontier_err(frontiers)
-    emit(phase="kernel_dbg_extend4_frontiers", rounds=len(frontiers), max_abs_err=err)
+    err = chain_err(frontiers)
+    emit(phase="kernel_dbg_extend_chain_frontiers", rounds=len(frontiers), max_abs_err=err)
     if err:
-        raise AssertionError("dbg_extend4 disagrees with plain on a sealer frontier")
+        raise AssertionError("the chain probe disagrees with plain on a sealer round")
     by_size = sorted((f for f in frontiers if f[3] == 32), key=lambda f: f[4].shape[0])
     picks = [("sealer_max", by_size[-1]), ("sealer_median", by_size[len(by_size) // 2])]
-    rows = [probe_row(label, f) for label, f in picks]
+    rows = [chain_row(label, f) for label, f in picks]
     rng = np.random.default_rng(SEED + 4)
     genome = np.frombuffer("".join(t for _n, t in truths).encode(), np.uint8)
     bits2 = NON_POW2_BYTES * 8
@@ -1504,12 +1609,14 @@ def probe_rows(frontiers, bfs_by_k, truths) -> list[dict]:
         truth_words = bloom_device.to_device_words(bfs_by_k[k], "cuda")
         for label, w, bits in (("synthetic_truth", truth_words, int(bfs_by_k[k].bits)),
                                ("synthetic_p75_non_pow2", p75, bits2)):
-            rows.append(probe_row(label, (w, bits, 4, k, verts, 1 << 15), reps=20))
+            args = (w, bits, 4, k, verts, 1 << 15)
+            rows.append(probe_row(label, args, reps=20))
+            rows.append(chain_row(label, (*args, de.CHAIN_STEPS), reps=20))
     for row in rows:
-        emit(phase="kernel_dbg_extend4", **row)
+        emit(phase="kernel_dbg_extend", **row)
         if not row["equal"]:
-            raise AssertionError(f"dbg_extend4 disagrees with plain ({row['frontier']}, "
-                                 f"k={row['k']})")
+            raise AssertionError(f"kernel 7 disagrees with plain ({row['frontier']}, "
+                                 f"k={row['k']}, D={row['steps']})")
     return rows
 
 
@@ -1614,10 +1721,10 @@ def main() -> int:
             **{key: sites[0][key] for key in keys}, "library_ms": None,
         },
         {
-            "name": "dbg_extend4", "route": "cuda",
+            "name": "dbg_extend_chain", "route": "cuda",
             "source": "goldpolish_tpu_torch/csrc/dbg_extend.cu",
             "replaces": "goldpolish_tpu/fill/konnector.py:265",
-            "launches": launches["dbg_extend4"],
+            "launches": launches["dbg_extend"],
             "max_abs_err": max(r["max_abs_err"] for r in ext_main + ext_rows),
             "ms": ext_main[0]["ms"], "plain_ms": ext_main[0]["plain_ms"],
             **{key: ext_main[0][key] for key in keys}, "library_ms": None,

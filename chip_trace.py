@@ -3,7 +3,8 @@
 
 Run from the repository root:
 
-    python3 chip_trace.py [--root DIR] [--runs N] [--no-trace] [--kernels | --jax]
+    python3 chip_trace.py [--root DIR] [--runs N] [--no-trace]
+                          [--kernels | --jax | --chain-steps]
 
 It polishes chip_smoke.py's main-path input (the seeded 4.64 Mbp gapped
 draft, its reads and PAF, `-b 1`, k = 32, 28, 24, 20, sealer on) with three
@@ -22,11 +23,15 @@ smoke's sealer phase with the hybrid backend (kernel 3 by name).
 
 --jax runs the two jax arms instead, both with the sealer on: `jax`
 (`--backend jax`: the packed scan and the site eval on the card with the
-Python walk, the host fill, and the sealer's lockstep searches probing each
-BFS level with kernel 7) and `jax_device_bf_build` (the same with
+Python walk, the host fill, and the sealer's lockstep searches walking the
+unbranched chains of each round's frontier with kernel 7) and
+`jax_device_bf_build` (the same with
 PipelineConfig.device_bf_build: kernel 5 fills every batch), with the same
 runs and traces (no sealer trace).  Every trace line also gives kernel 7's
-device time and launches in the traced run.
+device time and launches in the traced run.  --chain-steps runs the `jax`
+arm four times over, with the DeviceDBG walking D = 8, 16, 32 and 64
+levels a round (ops/dbg_extend.CHAIN_STEPS set before each run), with the
+same runs and traces: rounds, levels walked and `sealer_s` per D.
 
 --kernels times kernels 2 and 3 alone instead (chip_smoke.scan_rows and
 bfs_rows: every k on both filters, both BFS tiers on the sealer run's
@@ -54,6 +59,9 @@ ARMS = {"default": (None, ("--backend", "hybrid"), False),
         "hybrid_eval_off": ("0", ("--backend", "hybrid"), False)}
 JAX_ARMS = {"jax": (None, ("--backend", "jax"), False),
             "jax_device_bf_build": (None, ("--backend", "jax"), True)}
+# --chain-steps: the jax arm with DeviceDBG's D (dbg_extend.CHAIN_STEPS) at each
+CHAIN_STEPS_SWEEP = (8, 16, 32, 64)
+CHAIN_ARMS = {f"jax_d{d}": JAX_ARMS["jax"] for d in CHAIN_STEPS_SWEEP}
 
 
 def device_profile(events) -> dict:
@@ -72,7 +80,7 @@ def device_profile(events) -> dict:
             busy += b - end
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:25]
-    probe = [dur for name, _start, dur in events if "dbg_extend4" in name]
+    probe = [dur for name, _start, dur in events if "dbg_extend" in name]
     return {"device_busy_ms": busy / 1e6, "device_events": len(spans),
             "probe_device_ms": sum(probe) / 1e6, "probe_device_launches": len(probe),
             "device_ms_by_name": {name: ns / 1e6 for name, ns in top}}
@@ -90,8 +98,11 @@ def main() -> int:
     mode.add_argument("--jax", action="store_true",
                       help="the jax backend's two arms, host fill and "
                            "device_bf_build, sealer on")
+    mode.add_argument("--chain-steps", action="store_true",
+                      help="the jax arm (host fill, sealer on) with the DeviceDBG "
+                           "walking D = 8, 16, 32 and 64 levels a round")
     args = ap.parse_args()
-    arms = JAX_ARMS if args.jax else ARMS
+    arms = JAX_ARMS if args.jax else CHAIN_ARMS if args.chain_steps else ARMS
     import torch
 
     if not torch.cuda.is_available():
@@ -127,6 +138,10 @@ def main() -> int:
 
         def run(arm: str, i: int) -> dict:
             eval_env, cli_args, device_bf_build = arms[arm]
+            if args.chain_steps:
+                from goldpolish_tpu_torch.ops import dbg_extend
+
+                dbg_extend.CHAIN_STEPS = int(arm.removeprefix("jax_d"))
             env = {**cs.FORCE, "GPTPU_DEVICE_EVAL": eval_env}
             line = cs.run_arm(inp, f"{arm}_{i}", env, *cli_args,
                               device_bf_build=device_bf_build)
@@ -154,7 +169,7 @@ def main() -> int:
             cs.emit(phase=f"trace_{arm}", traced_wall_s=wall,
                     idle_share=1 - dev["device_busy_ms"] / (wall * 1e3),
                     device_filled_batches=line["device_filled_batches"], **dev)
-        if args.jax:
+        if args.jax or args.chain_steps:
             return 0
         sealer_in = cs.sealer_inputs(inp["truths"])
         cs.seal_hybrid(*sealer_in)  # warm-up: the filters' first upload

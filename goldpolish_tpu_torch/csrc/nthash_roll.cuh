@@ -1,6 +1,6 @@
 // ntHash v1 on the device: the split rotation, the direct window hash from
-// kernel 2's XOR tables, the O(1) roll and the extra hashes.  Kernels 4
-// (scan_eval.cu) and 5 (bloom_sort.cu) include it.
+// kernel 2's XOR tables, the O(1) roll and the extra hashes.  Kernels 2-7
+// include it.
 //
 //   fh(w)   = XOR_j TF[j][class(s[w+j])]    TF[j][c] = srol^(k-1-j)(seed_c)
 //   rh(w)   = XOR_j TR[j][s[w+j] & 7]       TR[j][c] = srol^j(seedTab[c])
@@ -133,6 +133,27 @@ __device__ __forceinline__ void gp_window_hash(const GpWindowTables& t, int k, B
     const uint8_t c = byte(j);
     fh ^= t.tf[j * 5 + t.cls[c]];
     rh ^= t.tr[j * 8 + (c & 7)];
+  }
+}
+
+// One step of a walk on the de Bruijn graph (kernel 7).  (fh, rh) hold the
+// direct-hash XOR of the k - 1 bytes that a vertex's four extensions share,
+// at their window positions: 0 .. k-2 for a successor walk (the base at
+// k - 1), 1 .. k-1 for a predecessor walk (the base at 0).  The walk moves
+// to the extension with `base`; `drop` is that extension's byte on the far
+// side (position 0, or k - 1), which the next vertex's extensions do not
+// share.  TF[j] = srol(TF[j+1]) and TR[j+1] = srol(TR[j]), so moving every
+// byte one position over is one split rotation, whatever k.
+__device__ __forceinline__ void gp_chain_step(const GpWindowTables& t, int k, bool succ,
+                                              uint64_t& fh, uint64_t& rh, uint8_t base,
+                                              uint8_t drop) {
+  const int last = k - 1;
+  if (succ) {
+    fh = gp_srol_n(fh ^ t.tf[last * 5 + t.cls[base]] ^ t.tf[t.cls[drop]], 1);
+    rh = gp_sror1(rh ^ t.tr[last * 8 + (base & 7)] ^ t.tr[drop & 7]);
+  } else {
+    fh = gp_sror1(fh ^ t.tf[t.cls[base]] ^ t.tf[last * 5 + t.cls[drop]]);
+    rh = gp_srol_n(rh ^ t.tr[base & 7] ^ t.tr[last * 8 + (drop & 7)], 1);
   }
 }
 

@@ -31,9 +31,10 @@ results (pinned by tests/test_packed_kmers.py).
 
 Port counterpart: goldpolish_tpu/fill/konnector.py, copied with one
 change: DeviceDBG (:233-315, K8) probes a lockstep round's frontier with
-the extension probe of ops/dbg_extend.py (kernel 7 on CUDA, its plain torch
-version on the CPU) on `device`, without the JAX call's shape bucket and
-host-built [rows, 4, k] extension rows.  The lockstep hooks it drives
+the chain-walking extension probe of ops/dbg_extend.py (kernel 7 on CUDA,
+its plain torch version on the CPU) on `device`, without the JAX call's
+shape bucket and host-built [rows, 4, k] extension rows, and caches every
+vertex of each unbranched chain it walked.  The lockstep hooks it drives
 (_BidiSearch.run_while_cached / frontier / prefetch, connect_pairs_batch)
 are the JAX package's; on the probing DBG they reduce to the serial loop.
 The other device arm is connect_pairs_batch_masks with
@@ -240,6 +241,21 @@ def _packed_view(dbg: DBG) -> PackedDBG:
     return view
 
 
+_BASE_OF_MASK = {1: "A", 2: "C", 4: "G", 8: "T"}
+
+
+def _cache_chain(cache: dict, v: str, row: list, succ: bool) -> None:
+    """Cache the masks of one chain (dbg_extend.dbg_extend_chain's row:
+    masks, then the chain's length) from vertex v, stepping through each
+    mask's one base; an entry already there stays."""
+    n = row[-1]
+    for j in range(n):
+        cache.setdefault(v, row[j])
+        if j + 1 < n:
+            b = _BASE_OF_MASK[row[j]]
+            v = v[1:] + b if succ else b + v[:-1]
+
+
 class DeviceDBG(DBG):
     """DBG whose 4-way extension probes run batched on `device`.
 
@@ -249,9 +265,10 @@ class DeviceDBG(DBG):
     probes to the device cannot change any outcome.  _BidiSearch hands the
     whole live frontier (both directions) to `prefetch` whenever it pops a
     vertex whose probes are not cached, so one device call (ops/dbg_extend:
-    the extensions' hash and Bloom test) covers a whole BFS level; newly
-    discovered children batch into the next call.  Vertices stay k-char
-    strings (_prepare_search packs only for the plain DBG).
+    the extensions' hash and Bloom test) covers a whole BFS level, and, on
+    every unbranched path from it, up to dbg_extend.CHAIN_STEPS levels
+    more; children off those chains batch into the next call.  Vertices
+    stay k-char strings (_prepare_search packs only for the plain DBG).
 
     device "cuda" (the default) raises without CUDA, never a CPU fallback;
     "cpu" runs the probe's plain torch version, for tests.  Each call's
@@ -279,10 +296,11 @@ class DeviceDBG(DBG):
         return kmer in cache
 
     def prefetch(self, succ_vertices, pred_vertices) -> None:
-        """Probe the 4 extensions of every uncached vertex in one device
-        call and fill the caches with their 4-bit masks."""
-        import torch
-
+        """Probe the 4 extensions of every uncached vertex, and walk the
+        unbranched chain from each for up to dbg_extend.CHAIN_STEPS levels,
+        in one device call (one upload, one launch, one copy back); fill
+        the caches with the 4-bit mask of every vertex on each chain,
+        leaving entries already there as they are."""
         from ..ops import dbg_extend
 
         succs = [v for v in dict.fromkeys(succ_vertices) if v not in self._succ_cache]
@@ -292,12 +310,12 @@ class DeviceDBG(DBG):
             return
         verts = np.frombuffer("".join(succs + preds).encode(), np.uint8).reshape(
             rows, self.k)
-        masks = dbg_extend.dbg_extend4(
-            self._words, int(self.bf.bits), self.h, self.k,
-            torch.from_numpy(verts.copy()).to(self.device), len(succs),
-        ).cpu().tolist()
-        self._succ_cache.update(zip(succs, masks))
-        self._pred_cache.update(zip(preds, masks[len(succs):]))
+        out = dbg_extend.probe_chains(self._words, int(self.bf.bits), self.h, self.k,
+                                      verts, len(succs)).tolist()
+        for v, row in zip(succs, out):
+            _cache_chain(self._succ_cache, v, row, True)
+        for v, row in zip(preds, out[len(succs):]):
+            _cache_chain(self._pred_cache, v, row, False)
 
     def successors(self, kmer: str) -> list[str]:
         m = self._succ_cache.get(kmer)

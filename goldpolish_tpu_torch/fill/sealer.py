@@ -155,8 +155,9 @@ def seal_records(records, bfs_by_k: dict[int, object], cfg: SealerConfig,
     backend="hybrid" computes every gap's extension masks with the
     whole-search BFS kernel (ops/dbg_bfs.DeviceBFS on `device`) and replays
     the host search against them.  backend="jax" runs every gap's search
-    in lockstep on a DeviceDBG (on `device`): one extension probe per BFS
-    level covers all the searches' frontiers.  Outcomes of both are
+    in lockstep on a DeviceDBG (on `device`): one extension probe per round
+    covers all the searches' frontiers and the unbranched chains from them
+    (up to ops/dbg_extend.CHAIN_STEPS levels).  Outcomes of both are
     identical to the host DBG (membership is a pure function of the Bloom
     filter).
     """

@@ -9,7 +9,8 @@ command, so a fresh checkout builds it once per machine.  A failed build
 raises; no caller falls back to the plain torch versions for CUDA tensors.
 
 Each wrapper counts its launches in a `LaunchCounter` and each plain
-version its calls, so a run can show which path it took.
+version its calls, so a run can show which path it took.  `to_device` and
+`to_host` move a wrapper's host inputs and outputs through pinned memory.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import os
 import shutil
 import subprocess
 import threading
+
+import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -141,12 +144,14 @@ def lib() -> ctypes.CDLL:
         L.gp_site_eval.argtypes = [
             vp, u64, i32, i32, vp, i64, vp, i64, vp, vp, vp, u64,
             vp, vp, i32, vp, i32, i32, i32, vp, i32, i32, i32,
-            vp, vp, vp, vp, vp,
+            vp, vp, vp, vp, vp, vp,
         ]
         L.gp_site_eval.restype = i32
-        L.gp_dbg_extend4.argtypes = [vp, u64, i32, i32, vp, i64, i64, vp, vp, vp, vp, u64,
-                                     vp]
-        L.gp_dbg_extend4.restype = i32
+        L.gp_site_eval_parts_bytes.argtypes = [i64, i32, i32, i32]
+        L.gp_site_eval_parts_bytes.restype = i64
+        L.gp_dbg_extend.argtypes = [vp, u64, i32, i32, vp, i64, i64, i32, i64, vp,
+                                    vp, vp, vp, u64, vp]
+        L.gp_dbg_extend.restype = i32
         _LIB = L
         return L
 
@@ -155,6 +160,32 @@ def check(rc: int, name: str) -> None:
     """Raise on a nonzero cudaError_t from a launch."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {rc}")
+
+
+def to_device(a, device):
+    """The numpy array a as a tensor on `device`: for CUDA, staged through
+    pinned host memory and copied on the current stream (no wait)."""
+    import torch
+
+    src = torch.from_numpy(np.array(a))  # a copy: `a` may be read-only
+    if torch.device(device).type == "cpu":
+        return src
+    pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+    pinned.copy_(src)
+    return pinned.to(device, non_blocking=True)
+
+
+def to_host(t):
+    """The tensor t in host memory: for CUDA, one copy into pinned memory on
+    the current stream, waited for; a CPU tensor as it is."""
+    import torch
+
+    if t.device.type == "cpu":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return out
 
 
 def require_cuda(t, name: str) -> None:

@@ -18,10 +18,13 @@ codes[p+1+j] (0 at or past the contig's length n, whatever the buffer
 holds there) and cand = sub_cand[draft] (zero-padded: padded lanes are
 hashed and probed with byte 0, as in the JAX program).
 
-`site_eval` launches the CUDA kernel of csrc/site_eval.cu for CUDA tensors
-and runs `eval_sites_device_reference`, the plain torch version that builds
-the patch tensors as `run` does and hashes them with ops/nthash_device, for
-CPU tensors.  `eval_sites_device` is eval_sites_jax: the deletion validity
+`site_eval_packed` launches the CUDA kernel of csrc/site_eval.cu for CUDA
+tensors and runs `eval_sites_device_reference`, the plain torch version
+that builds the patch tensors as `run` does and hashes them with
+ops/nthash_device, for CPU tensors; it returns the four outputs back to
+back in one uint8 buffer (`unpack_outputs` views it as the four), and
+`site_eval` returns those views.  `eval_sites_device` is eval_sites_jax,
+with one copy back per call into pinned memory: the deletion validity
 mask, the draft's upper-casing and the sub_cand lookup stay on the host.
 
 Two differences from the JAX program, neither visible in the result: only
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 
 from . import nthash_device as ntd
-from .cuda_build import LaunchCounter, check, lib, require_cuda
+from .cuda_build import LaunchCounter, check, lib, require_cuda, to_device, to_host
 from .scan_conv import _device_tables, _kmul, probe_bit_reference
 from .siteeval import SiteSupports, SiteTables
 
@@ -144,36 +147,54 @@ def eval_sites_device_reference(words: torch.Tensor, bits: int, h: int,
                          tables, n_combos, t)
              for i in range(0, sites.shape[0], REF_SITES)]
     if not parts:
-        return _outputs(0, tables, n_combos, codes.device)
+        return tuple(torch.empty(shape, dtype=dtype, device=codes.device)
+                     for shape, dtype in _shapes(0, tables, n_combos))
     return tuple(torch.cat(col) for col in zip(*parts))
 
 
 eval_sites_device_reference.calls = LaunchCounter()
 
 
-def _outputs(S: int, tables: SiteTables, C: int, device):
-    """Uninitialised (gate, sub_sup, ins_sup, del_pr) for S sites."""
-    e = functools.partial(torch.empty, device=device)
-    return (e(S, 4, dtype=torch.bool), e(S, 4, dtype=torch.int8),
-            e(S, 4, C, dtype=torch.int8),
-            e(S, tables.max_del, len(tables.j_del), dtype=torch.bool))
+def _shapes(S: int, tables: SiteTables, C: int):
+    """(shape, dtype) of gate, sub_sup, ins_sup and del_pr for S sites, in
+    the order the packed buffer holds them."""
+    return (((S, 4), torch.bool), ((S, 4), torch.int8), ((S, 4, C), torch.int8),
+            ((S, tables.max_del, len(tables.j_del)), torch.bool))
 
 
-def site_eval(words: torch.Tensor, bits: int, h: int, codes: torch.Tensor, n: int,
-              sites: torch.Tensor, tables: SiteTables, n_combos: int):
+def pack_outputs(outs) -> torch.Tensor:
+    """The four outputs as one uint8 buffer, back to back (the layout of
+    site_eval_packed)."""
+    return torch.cat([o.contiguous().view(torch.uint8).reshape(-1) for o in outs])
+
+
+def unpack_outputs(buf: torch.Tensor, S: int, tables: SiteTables, C: int):
+    """(gate, sub_sup, ins_sup, del_pr): views of the packed uint8 buffer
+    of S sites (site_eval_packed), on its device."""
+    shapes = _shapes(S, tables, C)
+    sizes = [int(np.prod(shape)) for shape, _dtype in shapes]
+    if sum(sizes) != buf.numel():
+        raise ValueError(f"a packed buffer of {buf.numel()} bytes, {sum(sizes)} expected")
+    parts = torch.split(buf, sizes)
+    return tuple(p.view(dtype).view(shape) for p, (shape, dtype) in zip(parts, shapes))
+
+
+def site_eval_packed(words: torch.Tensor, bits: int, h: int, codes: torch.Tensor, n: int,
+                     sites: torch.Tensor, tables: SiteTables, n_combos: int) -> torch.Tensor:
     """The four raw outputs of eval_sites_device_reference for the hot
     sites `sites` (int64 [S], window starts) of a contig whose codes
     (uint8, at least n of them; bytes past n are never read as sequence)
-    lie on the device of `words` (int32 [ceil(bits/32)]).  CPU tensors run
-    the plain version; CUDA tensors launch the kernel on the current
-    stream (no synchronisation)."""
+    lie on the device of `words` (int32 [ceil(bits/32)]), as one uint8
+    buffer (unpack_outputs), so a caller copies them back at once.  CPU
+    tensors run the plain version; CUDA tensors launch the kernel on the
+    current stream (no synchronisation)."""
     k = tables.k
     if codes.dim() != 1 or sites.dim() != 1 or not 1 <= n <= codes.shape[0]:
         raise ValueError(f"codes [L >= n] and sites [S] expected, got "
                          f"{tuple(codes.shape)}, {tuple(sites.shape)}, n={n}")
     if codes.device.type == "cpu":
-        return eval_sites_device_reference(words, bits, h, codes, n, sites, tables,
-                                           n_combos)
+        return pack_outputs(eval_sites_device_reference(words, bits, h, codes, n, sites,
+                                                        tables, n_combos))
     require_cuda(codes, "site_eval")
     _check(k, h, bits, tables, n_combos)
     if words.device != codes.device or sites.device != codes.device:
@@ -183,12 +204,18 @@ def site_eval(words: torch.Tensor, bits: int, h: int, codes: torch.Tensor, n: in
     if words.numel() * 32 < bits:
         raise ValueError("words hold fewer than `bits` bits")
     S, dev = sites.shape[0], codes.device
-    gate, sub_sup, ins_sup, del_pr = _outputs(S, tables, n_combos, dev)
+    nbytes = sum(int(np.prod(shape)) for shape, _dtype in _shapes(S, tables, n_combos))
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     if S == 0:
-        return gate, sub_sup, ins_sup, del_pr
+        return buf
+    gate, sub_sup, ins_sup, del_pr = unpack_outputs(buf, S, tables, n_combos)
     codes, words, sites = codes.contiguous(), words.contiguous(), sites.contiguous()
     t = _tables(tables, str(dev))
     tf, tr, fclass = _device_tables(k, str(dev))
+    # the insertion windows' hash parts, written and read by the kernel
+    parts = torch.empty(lib().gp_site_eval_parts_bytes(S, len(tables.j_ins), tables.max_ins,
+                                                       n_combos) // 8,
+                        dtype=torch.int64, device=dev)
     rc = lib().gp_site_eval(
         words.data_ptr(), bits, h, k, codes.data_ptr(), n, sites.data_ptr(), S,
         tf.data_ptr(), tr.data_ptr(), fclass.data_ptr(), _kmul(k),
@@ -197,14 +224,27 @@ def site_eval(words: torch.Tensor, bits: int, h: int, codes: torch.Tensor, n: in
         t["js"].data_ptr(),
         len(tables.j_sub), len(tables.j_ins), len(tables.j_del),
         gate.data_ptr(), sub_sup.data_ptr(), ins_sup.data_ptr(), del_pr.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        parts.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     check(rc, "gp_site_eval")
-    site_eval.launches.add()
-    return gate, sub_sup, ins_sup, del_pr
+    _LAUNCHES.add()
+    return buf
 
 
-site_eval.launches = LaunchCounter()
+_LAUNCHES = LaunchCounter()  # kernel 6's launches
+site_eval_packed.launches = _LAUNCHES
+
+
+def site_eval(words: torch.Tensor, bits: int, h: int, codes: torch.Tensor, n: int,
+              sites: torch.Tensor, tables: SiteTables, n_combos: int):
+    """site_eval_packed's four outputs (gate bool [S, 4], sub_sup int8
+    [S, 4], ins_sup int8 [S, 4, C], del_pr bool [S, max_del, len(j_del)]),
+    as views of its buffer."""
+    buf = site_eval_packed(words, bits, h, codes, n, sites, tables, n_combos)
+    return unpack_outputs(buf, sites.shape[0], tables, n_combos)
+
+
+site_eval.launches = _LAUNCHES
 
 
 def eval_sites_device(seq_codes: np.ndarray, sites_w: np.ndarray, words: torch.Tensor,
@@ -228,10 +268,10 @@ def eval_sites_device(seq_codes: np.ndarray, sites_w: np.ndarray, words: torch.T
     dev = words.device
     if codes_dev is None:
         codes_dev = torch.from_numpy(np.array(seq_codes, np.uint8)).to(dev)
-    sites = torch.from_numpy(sites_w.copy()).to(dev)
+    sites = to_device(sites_w, dev)
+    buf = to_host(site_eval_packed(words, bits, h, codes_dev, n, sites, tables, C))
     gate, sub_sup, ins_sup, del_pr = (
-        o.cpu().numpy() for o in site_eval(words, bits, h, codes_dev, n, sites, tables, C)
-    )
+        o.numpy() for o in unpack_outputs(buf, len(sites_w), tables, C))
     # deletion validity masks (end-of-contig roll bounds) on the host
     p = sites_w + k - 1
     d = np.arange(1, tables.max_del + 1)[None, :, None]

@@ -190,16 +190,23 @@ def test_device_dbg_matches_jax_and_host():
     want = jkon.DeviceDBG(_jax_filter(bf), K)
     dev = konnector.DeviceDBG(bf, K, device="cpu")
     kmers = [truth[i : i + K] for i in range(0, 500, 7)]
-    calls = dbg_extend.dbg_extend4_reference.calls.value
-    # prefetch half as a frontier batch, leave the rest to miss-path calls
+    far = [truth[i : i + K] for i in range(1200, 1500, 50)]  # on no chain below
+    calls = dbg_extend.dbg_extend_chain_reference.calls.value
+    # prefetch half as a frontier batch, leave the rest to miss-path calls;
+    # each prefetch also caches the unbranched chain from every vertex
     dev.prefetch(kmers[::2], kmers[1::2])
     want.prefetch(kmers[::2], kmers[1::2])
-    assert dbg_extend.dbg_extend4_reference.calls.value == calls + 1
-    assert dev.is_cached(kmers[0], True) and not dev.is_cached(kmers[0], False)
-    for km in kmers:
+    assert dbg_extend.dbg_extend_chain_reference.calls.value == calls + 1
+    # kmers[0]'s successors from its own row, its predecessors from the
+    # chain of kmers[1] (7 bases after it)
+    assert dev.is_cached(kmers[0], True) and dev.is_cached(kmers[0], False)
+    misses = 0
+    for km in kmers + far:
+        misses += (not dev.is_cached(km, True)) + (not dev.is_cached(km, False))
         assert dev.successors(km) == host.successors(km) == want.successors(km), km
         assert dev.predecessors(km) == host.predecessors(km) == want.predecessors(km), km
-    assert dbg_extend.dbg_extend4_reference.calls.value == calls + 1 + len(kmers)
+    assert misses >= 2 * len(far)
+    assert dbg_extend.dbg_extend_chain_reference.calls.value == calls + 1 + misses
 
 
 def test_device_dbg_refuses_cuda_without_cuda():
