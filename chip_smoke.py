@@ -40,7 +40,14 @@ raises and the script exits non-zero without the result line.
             sends, those of all h loads of every window, those of an exit
             at each window's first clear bit), then at k = 32 and 341
             combos with h = 1, 3, 5 and 8 on a truth filter of that h and
-            the two p = 0.75 filters.  Times after
+            the two p = 0.75 filters.  Then k past 64 (phase_beyond_64):
+            the scan at k = 72 and 128 as above, the site eval at k = 72
+            and 128 and at k = 32 with (max_ins, max_del) = (5, 0) on the
+            hot sites of another mutated draft (its truth filter and a
+            p = 0.75 filter whose bit count is no power of two, 341 and 21
+            combos), and kernel 7 at k = 72 and 128 on 2^16 vertices of
+            its truth at D = 1 and D = 32, each row with the card's name.
+            Times after
             warm-up: `ms` and `plain_ms` per call of back-to-back calls
             between two CUDA events (host included), `device_ms` the
             device time per call (the profiler's summed CUDA events; null
@@ -87,6 +94,21 @@ raises and the script exits non-zero without the result line.
             lengths required bit-equal; the jax arm's largest and median
             rounds are timed (`kernel_dbg_extend_chain` rows
             `main_jax_*`).
+            Then the paths beside bulk's, on the same input, each arm's
+            counts set to 0 just before it and read just after:
+            `main_k72`, the CLI at -k 72 with the sealer on one batch (the
+            first contig: every arm walks with the Python two-phase engine
+            there) in four arms, hybrid under the A/B lock, hybrid forced,
+            jax and numpy, the device arms' bytes equal to numpy's, every
+            chain round of the jax arm held against its plain version;
+            `main_internal_map`, the default arm without --mappings (the
+            internal mapper; prints the mapped reads), its bytes equal to
+            a numpy run given the mapper's TSV; `targeted`, --target on
+            the draft's 92 soft-masked gaps, hybrid and jax bytes equal to
+            numpy's; `tools`, tools.bf -> tools.ntedit (on the card, and
+            with --processes 2) -> tools.sealer --lower -> tools.mask ->
+            tools.to_upper on one batch, every stage's bytes equal to the
+            same chain with --backend numpy.
             Before the arms, the fill phase: for each of the 4 batches
             (bulk's builder and read choice: ~1,900 reads, ~11.6 Mbases,
             a 10 MiB counting filter and a 4 MiB filter per k), the device
@@ -136,6 +158,8 @@ its call's own inputs, see HBM_BYTES_PER_S), and last the line
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import shutil
@@ -305,10 +329,11 @@ def phase_kernels(rng):
     return probe, scans
 
 
-def truth_scan_inputs(row: int):
-    """The scan's input on the main path, per k: [4, row + k - 1] rows cut
-    from a mutated draft, and a 4 MiB filter of its truth's k-mers (h = 4).
-    Its own generator, so the other phases keep their inputs."""
+def truth_scan_inputs(row: int, ks=K_VALUES):
+    """The scan's input on the main path, per k of ks: [4, row + k - 1]
+    rows cut from a mutated draft, and a 4 MiB filter of its truth's
+    k-mers (h = 4).  Its own generator, so the other phases keep their
+    inputs."""
     from goldpolish_tpu_torch.ops import bloom
     from goldpolish_tpu_torch.ops import nthash as nt
 
@@ -317,7 +342,7 @@ def truth_scan_inputs(row: int):
     truth = acgt[rng.integers(0, 4, 4 * row + 2000)].tobytes().decode()
     draft = np.frombuffer("".join(mutate(truth, rng)).encode(), np.uint8)
     truth = nt.encode(truth)
-    for k in K_VALUES:
+    for k in ks:
         bf = bloom.BloomFilter(FILTER_BITS // 8, 4, k)
         bf.insert(nt.multi_hashes(nt.canonical_hashes(truth, k), k, 4))
         rows = np.stack([draft[i * row : (i + 1) * row + k - 1] for i in range(4)])
@@ -347,12 +372,13 @@ def scan_requests(words, bits: int, h: int, k: int, codes) -> int:
     return requests
 
 
-def scan_rows(rng, p75, time_plain: bool = True) -> list[dict]:
+def scan_rows(rng, p75, time_plain: bool = True, ks=K_VALUES,
+              card: str | None = None) -> list[dict]:
     """scan_present_packed against its plain version on [4, 2^19 + k - 1]
-    rows for every k, on two filters: mixed-alphabet codes against the
-    p = 0.75 filter `p75`, then a mutated draft against a filter of its
+    rows for every k of ks, on two filters: mixed-alphabet codes against
+    the p = 0.75 filter `p75`, then a mutated draft against a filter of its
     truth's k-mers; each also against a filter whose bit count is no power
-    of two."""
+    of two.  With `card`, each row names the card it ran on."""
     import torch
 
     from goldpolish_tpu_torch.ops import scan_conv as sc
@@ -360,10 +386,10 @@ def scan_rows(rng, p75, time_plain: bool = True) -> list[dict]:
     dev = p75.device
     bits2 = NON_POW2_BYTES * 8
     inputs = []
-    for k in K_VALUES:
+    for k in ks:
         codes = mixed_codes(rng, (4, (1 << 19) + k - 1))
         inputs.append(("p75", k, p75, codes, random_words(rng, bits2)))
-    inputs += [("truth", *inp, inputs[-1][4]) for inp in truth_scan_inputs(1 << 19)]
+    inputs += [("truth", *inp, inputs[-1][4]) for inp in truth_scan_inputs(1 << 19, ks)]
     scans = []
     for label, k, words, codes, words2 in inputs:
         words, codes, words2 = (torch.as_tensor(a).to(dev) for a in (words, codes, words2))
@@ -394,6 +420,7 @@ def scan_rows(rng, p75, time_plain: bool = True) -> list[dict]:
             "plain_ms": time_ms(lambda: sc.scan_present_packed_reference(
                 words, FILTER_BITS, 4, k, codes), 3, warm=1) if time_plain else None,
             **bound(tensor_bytes(words, codes, want), 4 * codes.shape[0] * nw),
+            **({"card": card} if card else {}),
         }
         scans.append(row)
         emit(phase="kernel_scan_present_packed", **row)
@@ -585,7 +612,59 @@ def site_eval_requests(words, bits: int, h: int, codes, n: int, sites, tables,
 SITE_EVAL_H = (1, 3, 5, 8)  # hash counts checked beside the main path's 4
 
 
-def phase_site_eval(rng):
+def site_eval_row(label: str, args: tuple, card: str | None = None,
+                  time_plain: bool = True) -> dict:
+    """site_eval against its plain version on one call, args = (words, bits,
+    h, codes, n, sites, tables, C): bit-equal on all four outputs, the
+    checked windows and L2 requests, times and the bound; printed as a
+    `kernel_site_eval` line (with `card`, the card it ran on) and returned;
+    raises on a mismatch."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import siteeval_device as sd
+
+    words, bits, h, codes, n, sites, tables, C = args
+    k = tables.k
+    got = sd.site_eval(*args)
+    want = sd.eval_sites_device_reference(*args)
+    windows, requests, needed = site_eval_requests(*args)
+    dev_ms = device_ms(lambda: sd.site_eval(*args), 20)
+    ctx_bytes = sites.shape[0] * (2 * k - 1 + max(tables.max_del, tables.max_ins - 1))
+    row = {
+        "k": k, "h": h, "max_ins": tables.max_ins, "max_del": tables.max_del,
+        "filter": label, "sites": sites.shape[0], "combos": C,
+        "near_end_site": int(sites[-1].item()), "draft_bp": n,
+        "equal": all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want)),
+        "max_abs_err": max(int((g.int() - w.int()).abs().max().item()) if w.numel() else 0
+                           for g, w in zip(got, want)),
+        "gate_share": float(want[0].float().mean().item()),
+        "checked_windows": windows,
+        # the random L2 requests: those the design sends, those of all h
+        # loads of every window (the first design) and those an early exit
+        # at each window's first clear bit would need
+        "l2_requests": requests, "l2_requests_all_h": h * windows,
+        "l2_requests_min": needed,
+        "request_floor_ms": requests / L2_REQUESTS_PER_S * 1e3,
+        "l2_requests_per_s": requests / (dev_ms * 1e-3) if dev_ms else None,
+        "ms": time_ms(lambda: sd.site_eval(*args), 20),
+        "device_ms": dev_ms,
+        "plain_ms": time_ms(lambda: sd.eval_sites_device_reference(*args), 3, warm=1)
+        if time_plain else None,
+        # bytes: the filter words the probes need (at most the filter), each
+        # site's context, the sites, the outputs; operations: the hash
+        # values those probes need
+        **bound(min(tensor_bytes(words), 4 * needed) + ctx_bytes
+                + tensor_bytes(sites, *want), needed),
+        **({"card": card} if card else {}),
+    }
+    emit(phase="kernel_site_eval", **row)
+    if not row["equal"]:
+        raise AssertionError(f"site_eval disagrees with plain at k={k}, C={C}, "
+                             f"(i, d) = ({tables.max_ins}, {tables.max_del}) ({label})")
+    return row
+
+
+def phase_site_eval(rng, time_plain: bool = True):
     """site_eval (the batched site eval, K7) against its plain version at
     the main path's call shape (see the module docstring), required
     bit-equal on all four outputs; then at k = 32 with other hash counts
@@ -624,44 +703,9 @@ def phase_site_eval(rng):
         sites = torch.from_numpy(sites_np).to(dev)
         for label, (words, bits) in {"truth": (words_k, FILTER_BITS), **filters}.items():
             for C in (tables.n_combos, TIER0_COMBOS):
-                args = (words, bits, 4, codes, len(draft), sites, tables, C)
-                got = sd.site_eval(*args)
-                want = sd.eval_sites_device_reference(*args)
-                windows, requests, needed = site_eval_requests(*args)
-                dev_ms = device_ms(lambda: sd.site_eval(*args), 20)
-                ctx_bytes = len(sites_np) * (2 * k - 1 + tables.max_del)
-                row = {
-                    "k": k, "h": 4, "filter": label, "sites": len(sites_np), "combos": C,
-                    "near_end_site": int(sites_np[-1]), "draft_bp": len(draft),
-                    "equal": all(g.shape == w.shape and torch.equal(g, w)
-                                 for g, w in zip(got, want)),
-                    "max_abs_err": max(int((g.int() - w.int()).abs().max().item())
-                                       for g, w in zip(got, want)),
-                    "gate_share": float(want[0].float().mean().item()),
-                    "checked_windows": windows,
-                    # the random L2 requests: those the design sends, those
-                    # of all h loads of every window (the first design) and
-                    # those an early exit at each window's first clear bit
-                    # would need
-                    "l2_requests": requests, "l2_requests_all_h": 4 * windows,
-                    "l2_requests_min": needed,
-                    "request_floor_ms": requests / L2_REQUESTS_PER_S * 1e3,
-                    "l2_requests_per_s": requests / (dev_ms * 1e-3) if dev_ms else None,
-                    "ms": time_ms(lambda: sd.site_eval(*args), 20),
-                    "device_ms": dev_ms,
-                    "plain_ms": time_ms(lambda: sd.eval_sites_device_reference(*args),
-                                        3, warm=1),
-                    # bytes: the filter words the probes need (at most the
-                    # filter), each site's context, the sites, the outputs;
-                    # operations: the hash values those probes need
-                    **bound(min(tensor_bytes(words), 4 * needed) + ctx_bytes
-                            + tensor_bytes(sites, *want), needed),
-                }
-                rows.append(row)
-                emit(phase="kernel_site_eval", **row)
-                if not row["equal"]:
-                    raise AssertionError(
-                        f"site_eval disagrees with plain at k={k}, C={C} ({label})")
+                rows.append(site_eval_row(
+                    label, (words, bits, 4, codes, len(draft), sites, tables, C),
+                    time_plain=time_plain))
         if k != 32:
             continue
         for h in SITE_EVAL_H:
@@ -684,6 +728,76 @@ def phase_site_eval(rng):
                     raise AssertionError(
                         f"site_eval disagrees with plain at k={k}, h={h} ({label})")
     return rows
+
+
+# k past 64, where kernels 2, 6 and 7 size their tables from k (the native
+# walker stops at 64, so the editor's arms walk in Python there)
+BEYOND_K = (72, 128)
+
+
+def phase_beyond_64(card: str) -> dict:
+    """Kernels 2, 6 and 7 against their plain versions at k = 72 and 128,
+    and kernel 6 at (max_ins, max_del) = (5, 0), each row with its device
+    time, bound and the card's name: the scan on [4, 2^19 + k - 1] rows
+    (scan_rows), the site eval on the first 256 hot sites of a mutated
+    1.05 Mbp draft against a 4 MiB filter of its truth's k-mers and a
+    p = 0.75 filter whose bit count is no power of two, at 341 and 21
+    combos (site_eval_row), and the extension probe on 2^16 vertices cut
+    from that truth at D = 1 and at the DeviceDBG's D (probe_row,
+    chain_row).  Its own generator, so the other phases keep their
+    inputs."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import bloom, bloom_device, siteeval
+    from goldpolish_tpu_torch.ops import dbg_extend as de
+    from goldpolish_tpu_torch.ops import nthash as nt
+    from goldpolish_tpu_torch.polish.multik import ntedit_config_for_k
+
+    rng = np.random.default_rng(SEED + 5)
+    dev = torch.device("cuda")
+    p75 = torch.from_numpy(random_words(rng, FILTER_BITS)).to(dev)
+    scans = scan_rows(rng, p75, ks=BEYOND_K, card=card)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    truth = acgt[rng.integers(0, 4, 4 * EVAL_ROW + 2000)].tobytes().decode()
+    draft = np.frombuffer("".join(mutate(truth, rng)).encode(), np.uint8)
+    truth = np.frombuffer(truth.encode(), np.uint8)
+    codes = torch.from_numpy(draft.copy()).to(dev)
+    bits2 = NON_POW2_BYTES * 8
+    non_pow2 = torch.from_numpy(random_words(rng, bits2)).to(dev)
+    sites_rows, chain_rows = [], []
+    for k in (*BEYOND_K, 32):
+        cfg = ntedit_config_for_k(k)
+        bf = bloom.BloomFilter(FILTER_BITS // 8, 4, k)
+        bf.insert(nt.multi_hashes(nt.canonical_hashes(truth, k), k, 4))
+        words = bloom_device.to_device_words(bf, "cuda")
+        sites = torch.from_numpy(hot_sites(draft, bf, k)).to(dev)
+        # (5, 0) at k = 32: insertions reach past the deletions' suffix
+        mi, md = (cfg.max_insertions, cfg.max_deletions) if k != 32 else (5, 0)
+        tables = siteeval.make_tables(k, cfg.jump, mi, md)
+        for label, w, bits in (("truth", words, FILTER_BITS), ("p75_non_pow2", non_pow2, bits2)):
+            for C in (tables.n_combos, TIER0_COMBOS):
+                sites_rows.append(site_eval_row(
+                    label, (w, bits, 4, codes, len(draft), sites, tables, C), card))
+        if k == 32:
+            continue
+        starts = rng.integers(0, len(truth) - k, 1 << 16)
+        verts = truth[starts[:, None] + np.arange(k)]
+        verts = np.where(rng.random(verts.shape) < 0.002, mixed_codes(rng, verts.shape),
+                         verts)
+        verts = torch.from_numpy(verts.astype(np.uint8)).to(dev)
+        for label, w, bits in (("synthetic_truth", words, FILTER_BITS),
+                               ("synthetic_p75_non_pow2", non_pow2, bits2)):
+            args = (w, bits, 4, k, verts, 1 << 15)
+            for phase, row in (("kernel_dbg_extend", probe_row(label, args, reps=20)),
+                               ("kernel_dbg_extend_chain",
+                                chain_row(label, (*args, de.CHAIN_STEPS), reps=20))):
+                row["card"] = card
+                chain_rows.append(row)
+                emit(phase=phase, **row)
+                if not row["equal"]:
+                    raise AssertionError(f"kernel 7 disagrees with plain at k={k} "
+                                         f"({label}, D={row['steps']})")
+    return {"scan": scans, "site_eval": sites_rows, "dbg_extend": chain_rows}
 
 
 def make_inputs(rng, work: str):
@@ -1003,31 +1117,47 @@ def prepare_main(rng, work: str) -> dict:
             "paf": paf, "work": work}
 
 
-def cli_argv(inp: dict, name: str, *extra: str) -> list[str]:
-    """The CLI's arguments for one arm: its defaults plus `extra`."""
+@contextlib.contextmanager
+def env_set(env: dict):
+    """The environment with `env` applied (None removes a variable), put
+    back as it was on exit."""
+    saved = {key: os.environ.pop(key, None) for key in env}
+    os.environ.update({key: v for key, v in env.items() if v is not None})
+    try:
+        yield
+    finally:
+        for key, v in saved.items():
+            os.environ.pop(key, None)
+            if v is not None:
+                os.environ[key] = v
+
+
+def cli_argv(inp: dict, name: str, *extra: str, ks=K_VALUES,
+             mappings: bool = True) -> list[str]:
+    """The CLI's arguments for one arm: its defaults plus `extra`, with
+    the PAF unless `mappings` is False (the mapper then runs)."""
     work = inp["work"]
     argv = [inp["draft"], inp["reads"], os.path.join(work, f"polished_{name}.fa"),
-            "--mappings", inp["paf"], "-b", "1", "-m", os.path.join(work, f"ws_{name}"),
-            *extra]
-    for k in K_VALUES:
+            *(["--mappings", inp["paf"]] if mappings else []), "-b", "1",
+            "-m", os.path.join(work, f"ws_{name}"), *extra]
+    for k in ks:
         argv += ["-k", str(k)]
     return argv
 
 
 def run_arm(inp: dict, name: str, env: dict, *extra: str,
-            device_bf_build: bool = False) -> dict:
+            device_bf_build: bool = False, ks=K_VALUES, mappings: bool = True) -> dict:
     """One CLI run of the main path: every count set to 0 just before it
     and read just after; prints its line and returns what it saw.  With
     device_bf_build, run_bulk runs the CLI's config with that field set
-    (PipelineConfig's, which the CLI does not expose)."""
+    (PipelineConfig's, which the CLI does not expose).  `ks` and
+    `mappings` go to cli_argv."""
     from goldpolish_tpu_torch import cli
     from goldpolish_tpu_torch.pipeline import bulk
 
-    argv = cli_argv(inp, name, *extra)
+    argv = cli_argv(inp, name, *extra, ks=ks, mappings=mappings)
     out = argv[2]
     counters = main_counters()
-    saved = {key: os.environ.pop(key, None) for key in env}
-    os.environ.update({key: v for key, v in env.items() if v is not None})
     run_bulk, run = bulk.run_bulk, {}
     bulk.run_bulk = lambda cfg: run.update(run_bulk(cfg)) or run
 
@@ -1043,15 +1173,12 @@ def run_arm(inp: dict, name: str, env: dict, *extra: str,
         c.reset()
     try:
         t = time.monotonic()
-        with SealerTally() as tally, WalkTally() as walk, ProbeLog() as probes:
+        with env_set(env), SealerTally() as tally, WalkTally() as walk, \
+                ProbeLog() as probes:
             rc = main_path()
         wall = time.monotonic() - t
     finally:
         bulk.run_bulk = run_bulk
-        for key, v in saved.items():
-            os.environ.pop(key, None)
-            if v is not None:
-                os.environ[key] = v
     counts = {key: c.value for key, c in counters.items()}
     if rc != 0:
         raise RuntimeError(f"cli.main ({name}) returned {rc}")
@@ -1062,7 +1189,7 @@ def run_arm(inp: dict, name: str, env: dict, *extra: str,
     exact = sum(1 for n, s in recs if s.upper() == truth.get(n))
     line = dict(wall_s=wall, polished_bases_per_s=inp["draft_bp"] / wall,
                 contigs=len(recs), contigs_equal_truth=exact,
-                share_equal_truth=exact / N_CONTIGS, ntedit_s=tally.ntedit_s,
+                share_equal_truth=exact / len(truth), ntedit_s=tally.ntedit_s,
                 bf_build_s=run["timing"].get("bf_build_s"),
                 bf_fill_bg_s=run["timing"].get("bf_fill_bg_s"),
                 device_filled_batches=run["device_filled_batches"],
@@ -1078,6 +1205,209 @@ def run_arm(inp: dict, name: str, env: dict, *extra: str,
 # the hybrid arms pin the device scan (the A/B placement lock would
 # otherwise pick per workload class), so the arms compare like with like
 FORCE = {"GPTPU_FORCE_DEVICE_SCAN": "1"}
+
+
+def one_batch_input(inp: dict) -> dict:
+    """The main path's input cut to one batch: its first contig (~1.16 Mbp,
+    with its errors and n gaps) as a draft of its own, indexed, and the
+    reads the PAF maps to it (the PAF itself serves unchanged)."""
+    from goldpolish_tpu_torch.io import seqindex
+
+    work = inp["work"]
+    name, seq = read_fasta(inp["draft"])[0]
+    draft = os.path.join(work, "draft_one_batch.fa")
+    with open(draft, "w") as f:
+        f.write(f">{name}\n{seq}\n")
+    with open(inp["paf"]) as f:
+        ids = {row.split("\t", 1)[0] for row in f if row.split("\t", 6)[5] == name}
+    reads = os.path.join(work, "reads_one_batch.fa")
+    with open(reads, "w") as f:
+        f.write("".join(f">{n}\n{s}\n" for n, s in read_fasta(inp["reads"]) if n in ids))
+    for path in (draft, reads):
+        seqindex.SeqIndex.build(path).save(path + ".index")
+    return {**inp, "draft": draft, "reads": reads, "draft_bp": len(seq),
+            "truths": inp["truths"][:1], "contig": name, "n_reads": len(ids)}
+
+
+def require_launches(line: dict, *names: str) -> None:
+    """Raise unless the run launched each named kernel and ran no plain
+    version."""
+    missing = [n for n in names if line[f"{n}_launches"] <= 0]
+    if missing or line["plain_calls"]:
+        raise AssertionError(f"{line['name']}: no launch of {missing}, "
+                             f"{line['plain_calls']} plain calls")
+
+
+def phase_main_k72(inp: dict) -> dict:
+    """The CLI at -k 72, sealer on, in four arms: hybrid under the A/B
+    lock (GPTPU_FORCE_DEVICE_SCAN unset), hybrid with the device scan
+    forced, jax and numpy.  The native walker stops at k = 64, so every
+    arm walks with the Python two-phase engine and the numpy and hybrid
+    arms evaluate sites on the host: the phase runs on one batch (the
+    first contig) to stay inside the smoke's time.  The device arms' bytes
+    must equal the numpy arm's; the forced arm launches the scan, the jax
+    arm the scan, the site eval and the chain probe, whose every round is
+    then held against its plain version."""
+    one = one_batch_input(inp)
+    ks = (72,)
+    arms = {
+        "hybrid_lock": run_arm(one, "k72_hybrid_lock", {"GPTPU_FORCE_DEVICE_SCAN": None},
+                               ks=ks),
+        "hybrid_forced": run_arm(one, "k72_hybrid_forced", FORCE, "--backend", "hybrid",
+                                 ks=ks),
+        "jax": run_arm(one, "k72_jax", {}, "--backend", "jax", ks=ks),
+        "numpy": run_arm(one, "k72_numpy", {}, "--backend", "numpy", ks=ks),
+    }
+    for name, arm in arms.items():
+        arm["name"] = f"main_k72 {name}"
+    jax = arms["jax"]
+    err = chain_err(jax["frontiers"])
+    line = {
+        "input": f"one batch: {one['contig']} alone, {one['draft_bp']} bp (the Python "
+                 "two-phase engine walks every arm at k > 64)",
+        "k": list(ks),
+        **{f"{name}_equals_numpy": arm["bytes"] == arms["numpy"]["bytes"]
+           for name, arm in arms.items() if name != "numpy"},
+        **{f"{name}_wall_s": arm["wall_s"] for name, arm in arms.items()},
+        "hybrid_lock_scan_launches": arms["hybrid_lock"]["scan_kernel_launches"],
+        "gaps_found": jax["gaps_found"], "gaps_closed": jax["gaps_closed"],
+        "jax_rounds": len(jax["frontiers"]), "chain_max_abs_err": err,
+    }
+    emit(phase="main_k72", **line)
+    if any(arm["bytes"] != arms["numpy"]["bytes"] for arm in arms.values()):
+        raise AssertionError("a device arm at -k 72 differs from the numpy arm")
+    require_launches(arms["hybrid_forced"], "scan_kernel")
+    require_launches(jax, "scan_kernel", "site_eval", "dbg_extend")
+    if arms["hybrid_lock"]["plain_calls"] or jax["gaps_found"] <= 0 or err:
+        raise AssertionError(f"main_k72: {line}")
+    return {"chain_max_abs_err": err, **line}
+
+
+def phase_internal_map(inp: dict) -> dict:
+    """The CLI's default arm without --mappings on the main path's input:
+    no ntLink on PATH, so the internal minimizer mapper maps the reads
+    (its TSV lands in the CWD, here the work directory).  Its bytes must
+    equal a --backend numpy run given that TSV as --mappings."""
+    work = inp["work"]
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        default = run_arm(inp, "internal_map", FORCE, mappings=False)
+    finally:
+        os.chdir(cwd)
+    default["name"] = "main_internal_map"
+    tsv = os.path.join(work, f"{os.path.basename(inp['draft'])}."
+                             f"{os.path.basename(inp['reads'])}.internal.mapping.tsv")
+    with open(tsv) as f:
+        rows = [row.split("\t", 1)[0] for row in f]
+    host = run_arm({**inp, "paf": tsv}, "internal_map_numpy", {}, "--backend", "numpy")
+    line = {"mapped_reads": len(set(rows)), "mapping_rows": len(rows),
+            "equals_numpy": default["bytes"] == host["bytes"],
+            "wall_s": default["wall_s"], "numpy_wall_s": host["wall_s"],
+            "contigs_equal_truth": default["contigs_equal_truth"]}
+    emit(phase="main_internal_map", **line)
+    if not line["equals_numpy"] or not rows:
+        raise AssertionError(f"main_internal_map: {line}")
+    require_launches(default, "scan_eval")
+    return line
+
+
+def phase_targeted(inp: dict) -> dict:
+    """--target on the main path's draft: its soft-masked (lowercase n)
+    gaps, with their 64-bp flanks, polished through bulk and spliced back,
+    on the hybrid (device scan forced), jax and numpy backends; the device
+    arms' bytes must equal numpy's.  The hybrid arm launches the fused
+    eval, the jax arm the scan and the site eval; the gap records carry
+    too few reads (the recursion's -s 100) for the sealer to anchor a
+    search, so kernel 7's launches are reported, not required."""
+    from goldpolish_tpu_torch.pipeline import targeted
+
+    n_gaps = sum(len(list(targeted.extract_masked_subsequences(seq, name, 64)))
+                 for name, seq in read_fasta(inp["draft"]))
+    arms = {
+        "hybrid": run_arm(inp, "targeted_hybrid", FORCE, "--target"),
+        "jax": run_arm(inp, "targeted_jax", {}, "--target", "--backend", "jax"),
+        "numpy": run_arm(inp, "targeted_numpy", {}, "--target", "--backend", "numpy"),
+    }
+    for name, arm in arms.items():
+        arm["name"] = f"targeted {name}"
+    line = {"gaps": n_gaps,
+            **{f"{name}_equals_numpy": arm["bytes"] == arms["numpy"]["bytes"]
+               for name, arm in arms.items() if name != "numpy"},
+            **{f"{name}_wall_s": arm["wall_s"] for name, arm in arms.items()},
+            "gaps_closed": arms["numpy"]["gaps_closed"],
+            "jax_launches": {n: arms["jax"][f"{n}_launches"]
+                             for n in ("scan_kernel", "site_eval", "dbg_extend")}}
+    emit(phase="targeted", **line)
+    if n_gaps <= 0 or any(arm["bytes"] != arms["numpy"]["bytes"] for arm in arms.values()):
+        raise AssertionError(f"targeted: {line}")
+    require_launches(arms["hybrid"], "scan_eval")
+    require_launches(arms["jax"], "scan_kernel", "site_eval")
+    return line
+
+
+def phase_tools(inp: dict) -> dict:
+    """The stage tools chained on one batch (the first contig and its
+    reads): tools.bf (k = 32, 28) -> tools.ntedit -> tools.sealer --lower
+    -> tools.mask -> tools.to_upper, with tools.ntedit on the card (its
+    default, the device scan forced) and again with --processes 2, and the
+    same chain with --backend numpy.  The card's bytes must equal numpy's
+    at every stage, and --processes 2 those of the inline run."""
+    from goldpolish_tpu_torch.tools import bf, mask, ntedit, sealer, to_upper
+    from goldpolish_tpu_torch.utils import procs
+
+    one = one_batch_input(inp)
+    work = one["work"]
+    prefix = os.path.join(work, "tools")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        bf.main([one["reads"], "-k32", "-k28", "-o", prefix])
+    filters = [f"{prefix}-k32.bf", f"{prefix}-k28.bf"]
+    counters = main_counters()
+
+    def run_ntedit(name: str, env: dict, *extra: str) -> dict:
+        out = os.path.join(work, f"tools_{name}.ntedit.fa")
+        for c in counters.values():
+            c.reset()
+        t = time.monotonic()
+        with env_set(env), contextlib.redirect_stdout(printed):
+            ntedit.main([one["draft"], filters[0], out, *extra])
+        counts = {key: c.value for key, c in counters.items()}
+        return {"name": f"tools {name}", "out": out, "wall_s": time.monotonic() - t,
+                **counts, "plain_calls": sum(v for key, v in counts.items()
+                                             if key.startswith("plain"))}
+
+    def rest_of_chain(name: str, polished: str) -> list[bytes]:
+        sealed, masked, final = (os.path.join(work, f"tools_{name}.{s}.fa")
+                                 for s in ("sealed", "masked", "upper"))
+        with contextlib.redirect_stdout(printed):
+            sealer.main([polished, sealed, "--bf", filters[0], "--bf", filters[1],
+                         "--lower"])
+            mask.main([sealed, masked, "-k", "32"])
+            to_upper.main([masked, final])
+        return [open(p, "rb").read() for p in (polished, sealed, masked, final)]
+
+    try:
+        card = run_ntedit("card", FORCE)
+        pooled = run_ntedit("card_processes_2", FORCE, "--processes", "2")
+    finally:
+        procs.shutdown_pools()
+    host = run_ntedit("numpy", {}, "--backend", "numpy")
+    got, want = rest_of_chain("card", card["out"]), rest_of_chain("numpy", host["out"])
+    line = {"input": f"one batch: {one['contig']}, {one['draft_bp']} bp, "
+                     f"{one['n_reads']} reads",
+            "stages_equal_numpy": [g == w for g, w in zip(got, want)],
+            "processes_2_equals_inline": (open(pooled["out"], "rb").read() == got[0]),
+            "ntedit_wall_s": {a["name"]: a["wall_s"] for a in (card, pooled, host)},
+            "scan_eval_launches": card["scan_eval_launches"],
+            "scan_eval_launches_processes_2": pooled["scan_eval_launches"],
+            "printed": printed.getvalue().splitlines()}
+    emit(phase="tools", **line)
+    if not all(line["stages_equal_numpy"]) or not line["processes_2_equals_inline"]:
+        raise AssertionError(f"tools: {line}")
+    require_launches(card, "scan_eval")
+    require_launches(pooled, "scan_eval")
+    return line
 
 
 def phase_main(rng):
@@ -1173,7 +1503,12 @@ def phase_main(rng):
                     "bloom_sort_fill": sum(fill_launches),
                     "site_eval": dbb["site_eval_launches"],
                     "dbg_extend": jax["dbg_extend_launches"]}
-        return launches, truths, fills, ext_main
+        # the paths of the CLI and the stage tools beside bulk's main path,
+        # each with its counts set to 0 just before its arms and read after
+        paths = {"main_k72": phase_main_k72(inp),
+                 "main_internal_map": phase_internal_map(inp),
+                 "targeted": phase_targeted(inp), "tools": phase_tools(inp)}
+        return launches, truths, fills, ext_main, paths
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1657,7 +1992,12 @@ def main() -> int:
     # its own generator, so the other phases keep their inputs
     evals = phase_scan_eval(np.random.default_rng(SEED + 1))
     sites = phase_site_eval(np.random.default_rng(SEED + 3))
-    launches, truths, fills, ext_main = phase_main(rng)
+    beyond = phase_beyond_64(card)
+    scans, sites = scans + beyond["scan"], sites + beyond["site_eval"]
+    launches, truths, fills, ext_main, paths = phase_main(rng)
+    ext_main[0]["max_abs_err"] = max(ext_main[0]["max_abs_err"],
+                                     paths["main_k72"]["chain_max_abs_err"],
+                                     *(r["max_abs_err"] for r in beyond["dbg_extend"]))
     bfs_launches, bfs_rows, ext_rows = phase_sealer(truths)
     first = scans[0]
     # no single PyTorch call computes any of these functions: library_ms null

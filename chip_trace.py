@@ -33,9 +33,11 @@ arm four times over, with the DeviceDBG walking D = 8, 16, 32 and 64
 levels a round (ops/dbg_extend.CHAIN_STEPS set before each run), with the
 same runs and traces: rounds, levels walked and `sealer_s` per D.
 
---kernels times kernels 2 and 3 alone instead (chip_smoke.scan_rows and
-bfs_rows: every k on both filters, both BFS tiers on the sealer run's
-searches and on the mixed batch; each equal to its plain version first).
+--kernels times kernels 2, 3, 6 and 7 alone instead (chip_smoke.scan_rows,
+bfs_rows, phase_site_eval and probe_rows: every k on both filters, both
+BFS tiers on the sealer run's searches and on the mixed batch, the site
+eval's main-path calls, and the extension probe on the jax sealer's
+rounds and on 2^16 vertices; each equal to its plain version first).
 --root imports goldpolish_tpu_torch from another checkout (for example an
 unpacked parent commit), so two commits can be compared within one call:
 run it once per checkout, in turns.
@@ -94,7 +96,7 @@ def main() -> int:
     ap.add_argument("--no-trace", action="store_true")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--kernels", action="store_true",
-                      help="time kernels 2 and 3 alone, no CLI run")
+                      help="time kernels 2, 3, 6 and 7 alone, no CLI run")
     mode.add_argument("--jax", action="store_true",
                       help="the jax backend's two arms, host fill and "
                            "device_bf_build, sealer on")
@@ -131,9 +133,15 @@ def main() -> int:
             cs.scan_rows(rng, p75, time_plain=False)
         inp = cs.prepare_main(rng, work)
         if args.kernels:
+            from goldpolish_tpu_torch.fill import sealer
+
             sealer_in = cs.sealer_inputs(inp["truths"])
             log = cs.seal_hybrid(*sealer_in)[2]
             cs.bfs_rows(sealer_in[1], log.searches[32], time_plain=False)
+            cs.phase_site_eval(np.random.default_rng(cs.SEED + 3), time_plain=False)
+            host = sealer.seal_records(*sealer_in)
+            frontiers = cs.seal_jax(*sealer_in, *host)
+            cs.probe_rows(frontiers, sealer_in[1], inp["truths"])
             return 0
 
         def run(arm: str, i: int) -> dict:

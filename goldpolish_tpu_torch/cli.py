@@ -4,10 +4,9 @@ reference driver.
 Port counterpart: goldpolish_tpu/cli.py, copied with these changes:
 --backend takes hybrid (the default: the card), jax (the device site eval
 and the sealer's lockstep device DBG) or numpy (the host path),
---device picks where the hybrid and jax device work and the --fill-overlap
-device fill run (cuda, the default, raises without CUDA; cpu is for
-tests), and --target (targeted mode) raises until pipeline/targeted.py is
-ported (ROADMAP.md queue 1).
+and --device picks where the hybrid and jax device work and the
+--fill-overlap device fill run (cuda, the default, raises without CUDA;
+cpu is for tests).
 
 Usage mirrors `goldpolish <draft.fa> <reads.fa|fq> <out.fa>` with the
 reference's flags (reference: scripts/goldpolish:72-196) plus framework
@@ -148,12 +147,13 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     cfg = args_to_config(args)
     if cfg.target:
-        raise NotImplementedError(
-            "targeted mode is not ported yet (ROADMAP.md queue 1)"
-        )
-    from .pipeline import bulk
+        from .pipeline import targeted
 
-    bulk.run_bulk(cfg)
+        targeted.run_targeted(cfg)
+    else:
+        from .pipeline import bulk
+
+        bulk.run_bulk(cfg)
     return 0
 
 

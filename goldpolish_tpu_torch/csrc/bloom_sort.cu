@@ -57,6 +57,9 @@ constexpr int kThreads = 256;
 constexpr int kRun = 8;                 // consecutive windows per thread
 constexpr int kSpan = kThreads * kRun;  // windows per block
 constexpr int kMaxH = 16;
+// the largest k the kernel takes; it sizes the static shared memory (the
+// wrapper takes k <= bloom_sort.KHALO + 1, the JAX build's row halo)
+constexpr int kFillMaxK = 64;
 
 struct Stream {
   const uint8_t* codes;
@@ -104,9 +107,9 @@ __global__ void __launch_bounds__(kThreads) bf_pass(Stream st, Fill f,
                                                     const uint64_t* __restrict__ tf,
                                                     const uint64_t* __restrict__ tr,
                                                     const uint8_t* __restrict__ fclass) {
-  __shared__ GpWindowTables s_t;
+  __shared__ GpWindowTables<kFillMaxK> s_t;
   __shared__ GpRollTables s_r;
-  __shared__ uint8_t s_codes[kSpan + kGpMaxK - 1];
+  __shared__ uint8_t s_codes[kSpan + kFillMaxK - 1];
 
   const int k = f.k;
   const int64_t p0 = (int64_t)blockIdx.x * kSpan;
@@ -151,7 +154,7 @@ int launch(const void* codes, int64_t n, const void* offsets, int64_t n_reads,
            const void* thrs, int k, int delta, const void* tf, const void* tr,
            const void* fclass, int h, uint64_t kmul, uint64_t cbf_size, void* totals,
            uint64_t bits, void* words, void* stream) {
-  if (k < 1 || k > kGpMaxK || n_reads < 1 || n < k || h < 1 || h > kMaxH || cbf_size == 0 ||
+  if (k < 1 || k > kFillMaxK || n_reads < 1 || n < k || h < 1 || h > kMaxH || cbf_size == 0 ||
       (kPromote && bits == 0))
     return (int)cudaErrorInvalidValue;
   const int64_t nw = n - k + 1;

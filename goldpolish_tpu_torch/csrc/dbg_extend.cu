@@ -52,6 +52,10 @@
 //    the walk appended, kept as 2 bits in a 128-bit register history;
 //  * the tables are staged in shared memory once per block; a grid-stride
 //    loop over a few blocks per SM keeps that staging small beside the work.
+//    They take dynamic shared memory sized from k at launch (at k <= 64 the
+//    bytes of static arrays of that capacity); past ~470, where they would pass
+//    48 KB, the kernel reads them through the read-only cache instead
+//    (kSmem false), so any k runs.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -77,14 +81,8 @@ struct ExtendArgs {
   uint8_t* out;  // [R, ld]
 };
 
-template <bool kPow2>
-__global__ void __launch_bounds__(kExtThreads)
-gp_dbg_extend_kernel(ExtendArgs a, const uint64_t* __restrict__ tf,
-                     const uint64_t* __restrict__ tr, const uint8_t* __restrict__ fclass) {
-  __shared__ GpWindowTables s_t;
-  gp_load_window_tables(s_t, a.k, tf, tr, fclass);
-  __syncthreads();
-
+template <bool kPow2, class T>
+__device__ __forceinline__ void extend_rows(const ExtendArgs& a, const T& s_t) {
   const int k = a.k;
   const uint8_t acgt[4] = {'A', 'C', 'G', 'T'};
   for (int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; r < a.R;
@@ -98,8 +96,8 @@ gp_dbg_extend_kernel(ExtendArgs a, const uint64_t* __restrict__ tf,
     uint64_t fh = 0, rh = 0;
     for (int j = succ ? 0 : 1; j < (succ ? k - 1 : k); ++j) {
       const uint8_t c = __ldg(v + j + shift);
-      fh ^= s_t.tf[j * 5 + s_t.cls[c]];
-      rh ^= s_t.tr[j * 8 + (c & 7)];
+      fh ^= s_t.f(j, c);
+      rh ^= s_t.r(j, c);
     }
     uint64_t hist0 = 0, hist1 = 0;  // base (0-3) chosen at step s: 2 bits at s
     int step = 0;
@@ -107,8 +105,7 @@ gp_dbg_extend_kernel(ExtendArgs a, const uint64_t* __restrict__ tf,
       uint64_t base[4];
 #pragma unroll
       for (int b = 0; b < 4; ++b)
-        base[b] = (fh ^ s_t.tf[bpos * 5 + s_t.cls[acgt[b]]]) +
-                  (rh ^ s_t.tr[bpos * 8 + (acgt[b] & 7)]);
+        base[b] = (fh ^ s_t.f(bpos, acgt[b])) + (rh ^ s_t.r(bpos, acgt[b]));
       unsigned mask = 0xFu;
       for (int i0 = 0; i0 < a.h && mask; i0 += 4) {
         GpProbe4 p[4];
@@ -140,6 +137,23 @@ gp_dbg_extend_kernel(ExtendArgs a, const uint64_t* __restrict__ tf,
   }
 }
 
+// kSmem: the direct tables staged in dynamic shared memory
+// (gp_table_bytes(k)); else read from device memory.
+template <bool kPow2, bool kSmem>
+__global__ void __launch_bounds__(kExtThreads)
+gp_dbg_extend_kernel(ExtendArgs a, const uint64_t* __restrict__ tf,
+                     const uint64_t* __restrict__ tr, const uint8_t* __restrict__ fclass) {
+  if constexpr (kSmem) {
+    extern __shared__ __align__(16) uint8_t s_dyn[];
+    const GpTableRef t = gp_table_ref(s_dyn, a.k);
+    gp_load_window_tables(t, a.k, tf, tr, fclass);
+    __syncthreads();
+    extend_rows<kPow2>(a, t);
+  } else {
+    extend_rows<kPow2>(a, GpGlobalTables{tf, tr, fclass});
+  }
+}
+
 }  // namespace
 
 // words: uint32[ceil(bits/32)]; verts: uint8[R, k], successor rows first
@@ -153,7 +167,7 @@ extern "C" int gp_dbg_extend(const void* words, uint64_t bits, int h, int k, con
                              int64_t R, int64_t n_succ, int D, int64_t ld, void* out,
                              const void* tf, const void* tr, const void* fclass, uint64_t kmul,
                              void* stream) {
-  if (k < 1 || k > kGpMaxK || h < 1 || h > kExtMaxH || bits == 0 || R < 0 || n_succ < 0 ||
+  if (k < 1 || h < 1 || h > kExtMaxH || bits == 0 || R < 0 || n_succ < 0 ||
       n_succ > R || D < 1 || D > kExtMaxD || (ld != D && ld != D + 1))
     return (int)cudaErrorInvalidValue;
   if (R == 0) return 0;
@@ -166,9 +180,12 @@ extern "C" int gp_dbg_extend(const void* words, uint64_t bits, int h, int k, con
   if (blocks > (int64_t)sms * kExtBlocksPerSm) blocks = (int64_t)sms * kExtBlocksPerSm;
   const ExtendArgs a{(const uint32_t*)words, bits, h, k, kmul, (const uint8_t*)verts,
                      R, n_succ, D, ld, (uint8_t*)out};
-  auto kernel = (bits & (bits - 1)) == 0 ? gp_dbg_extend_kernel<true>
-                                         : gp_dbg_extend_kernel<false>;
-  kernel<<<(unsigned)blocks, kExtThreads, 0, (cudaStream_t)stream>>>(
+  const bool pow2 = (bits & (bits - 1)) == 0;
+  const int64_t smem = gp_table_bytes(k);
+  const bool in_smem = smem <= kGpSmemBytes;
+  auto kernel = in_smem ? (pow2 ? gp_dbg_extend_kernel<true, true> : gp_dbg_extend_kernel<false, true>)
+                        : (pow2 ? gp_dbg_extend_kernel<true, false> : gp_dbg_extend_kernel<false, false>);
+  kernel<<<(unsigned)blocks, kExtThreads, in_smem ? (size_t)smem : 0, (cudaStream_t)stream>>>(
       a, (const uint64_t*)tf, (const uint64_t*)tr, (const uint8_t*)fclass);
   return (int)cudaGetLastError();
 }

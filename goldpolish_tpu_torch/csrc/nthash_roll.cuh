@@ -11,14 +11,29 @@
 // (seedTab[c & 7]).  Rotation distributes over XOR, so the rolled and the
 // direct forms agree for every byte, whatever seed it carries (the tables
 // come from goldpolish_tpu_torch/ops/scan_conv.py:_xor_tables).
+//
+// The tables of one k, TF [k][5] (class 4, no seed, contributes 0), TR
+// [k][8] and the classes [256], take 104k + 256 bytes.  Three holders give
+// them the same interface, t.f(j, byte) = TF[j][class(byte)] and t.r(j,
+// byte) = TR[j][byte & 7]:
+//  * GpWindowTables<kMaxK>: static shared memory of a fixed capacity
+//    (kernels 4 and 5, whose k stays gated as in the JAX package);
+//  * GpTableRef: dynamic shared memory sized from k at launch (kernels 2,
+//    6 and 7, at any k whose tables fit beside the kernel's other shared
+//    memory within kGpSmemBytes);
+//  * GpGlobalTables: the wrapper's TF [k][4] and TR [k][8] in device memory
+//    read through the read-only cache, for a k too large for that.
 #pragma once
 
 #include <cstdint>
 
 #include "bloom_probe.cuh"
 
-constexpr int kGpMaxK = 64;
 constexpr int kGpNoClass = 4;  // forward class of bytes without a seed
+// The shared memory a block takes without the opt-in attribute; a kernel
+// whose k-sized shared memory would pass it reads its tables from device
+// memory instead (GpGlobalTables), so no k is refused.
+constexpr int64_t kGpSmemBytes = 48 * 1024;
 
 __device__ __forceinline__ uint64_t gp_srol_n(uint64_t v, int n) {
   const uint64_t m31 = (1ull << 31) - 1, m33 = (1ull << 33) - 1;
@@ -85,11 +100,48 @@ __device__ __forceinline__ bool gp_probe4_all(const GpProbe4& p) {
   return all;
 }
 
-// The direct-hash tables, staged in shared memory.
+// The direct-hash tables, staged in static shared memory, k <= kMaxK.
+template <int kMaxK>
 struct GpWindowTables {
-  uint64_t tf[kGpMaxK * 5];  // class 4 (no seed) contributes 0
-  uint64_t tr[kGpMaxK * 8];
+  uint64_t tf[kMaxK * 5];  // class 4 (no seed) contributes 0
+  uint64_t tr[kMaxK * 8];
   uint8_t cls[256];
+  __device__ __forceinline__ uint64_t f(int j, uint8_t c) const { return tf[j * 5 + cls[c]]; }
+  __device__ __forceinline__ uint64_t r(int j, uint8_t c) const { return tr[j * 8 + (c & 7)]; }
+};
+
+// The same tables in dynamic shared memory (gp_table_ref carves them).
+struct GpTableRef {
+  uint64_t* tf;
+  uint64_t* tr;
+  uint8_t* cls;
+  __device__ __forceinline__ uint64_t f(int j, uint8_t c) const { return tf[j * 5 + cls[c]]; }
+  __device__ __forceinline__ uint64_t r(int j, uint8_t c) const { return tr[j * 8 + (c & 7)]; }
+};
+
+// Bytes of a GpTableRef's tables at k, rounded up to 16.
+__host__ __device__ constexpr int64_t gp_table_bytes(int k) {
+  return (104ll * k + 256 + 15) / 16 * 16;
+}
+
+// The tables at the start of `smem` (8-byte aligned, gp_table_bytes(k)).
+__device__ __forceinline__ GpTableRef gp_table_ref(void* smem, int k) {
+  uint64_t* p = (uint64_t*)smem;
+  return {p, p + 5 * k, (uint8_t*)(p + 13 * k)};
+}
+
+// The wrapper's tables in device memory: tf [k][4], tr [k][8], cls [256].
+struct GpGlobalTables {
+  const uint64_t* tf;
+  const uint64_t* tr;
+  const uint8_t* cls;
+  __device__ __forceinline__ uint64_t f(int j, uint8_t c) const {
+    const uint8_t q = __ldg(cls + c);
+    return q == kGpNoClass ? 0ull : __ldg(tf + j * 4 + q);
+  }
+  __device__ __forceinline__ uint64_t r(int j, uint8_t c) const {
+    return __ldg(tr + j * 8 + (c & 7));
+  }
 };
 
 // The per-byte roll seeds for one k, staged in shared memory.
@@ -97,8 +149,10 @@ struct GpRollTables {
   uint64_t f[256], r[256], fk[256], rk[256];  // F, R, srol^k(F), srol^k(R)
 };
 
-// Every thread of the block calls it; __syncthreads() before reading.
-__device__ __forceinline__ void gp_load_window_tables(GpWindowTables& t, int k,
+// Stages GpWindowTables or GpTableRef.  Every thread of the block calls
+// it; __syncthreads() before reading.
+template <class T>
+__device__ __forceinline__ void gp_load_window_tables(T& t, int k,
                                                       const uint64_t* __restrict__ tf,
                                                       const uint64_t* __restrict__ tr,
                                                       const uint8_t* __restrict__ fclass) {
@@ -112,10 +166,10 @@ __device__ __forceinline__ void gp_load_window_tables(GpWindowTables& t, int k,
 
 // After the window tables are staged and synchronised; every thread of the
 // block calls it; __syncthreads() before reading.
-__device__ __forceinline__ void gp_load_roll_tables(GpRollTables& r, const GpWindowTables& t,
-                                                    int k) {
+template <class T>
+__device__ __forceinline__ void gp_load_roll_tables(GpRollTables& r, const T& t, int k) {
   for (int c = threadIdx.x; c < 256; c += blockDim.x) {
-    const uint64_t f = t.tf[(k - 1) * 5 + t.cls[c]], rv = t.tr[c & 7];
+    const uint64_t f = t.f(k - 1, (uint8_t)c), rv = t.r(0, (uint8_t)c);
     r.f[c] = f;
     r.r[c] = rv;
     r.fk[c] = gp_srol_n(f, k);
@@ -124,15 +178,15 @@ __device__ __forceinline__ void gp_load_roll_tables(GpRollTables& r, const GpWin
 }
 
 // (fh, rh) of the window whose byte j is byte(j), j < k.
-template <class Byte>
-__device__ __forceinline__ void gp_window_hash(const GpWindowTables& t, int k, Byte byte,
-                                               uint64_t& fh, uint64_t& rh) {
+template <class T, class Byte>
+__device__ __forceinline__ void gp_window_hash(const T& t, int k, Byte byte, uint64_t& fh,
+                                               uint64_t& rh) {
   fh = 0;
   rh = 0;
   for (int j = 0; j < k; ++j) {
     const uint8_t c = byte(j);
-    fh ^= t.tf[j * 5 + t.cls[c]];
-    rh ^= t.tr[j * 8 + (c & 7)];
+    fh ^= t.f(j, c);
+    rh ^= t.r(j, c);
   }
 }
 
@@ -144,16 +198,16 @@ __device__ __forceinline__ void gp_window_hash(const GpWindowTables& t, int k, B
 // side (position 0, or k - 1), which the next vertex's extensions do not
 // share.  TF[j] = srol(TF[j+1]) and TR[j+1] = srol(TR[j]), so moving every
 // byte one position over is one split rotation, whatever k.
-__device__ __forceinline__ void gp_chain_step(const GpWindowTables& t, int k, bool succ,
-                                              uint64_t& fh, uint64_t& rh, uint8_t base,
-                                              uint8_t drop) {
+template <class T>
+__device__ __forceinline__ void gp_chain_step(const T& t, int k, bool succ, uint64_t& fh,
+                                              uint64_t& rh, uint8_t base, uint8_t drop) {
   const int last = k - 1;
   if (succ) {
-    fh = gp_srol_n(fh ^ t.tf[last * 5 + t.cls[base]] ^ t.tf[t.cls[drop]], 1);
-    rh = gp_sror1(rh ^ t.tr[last * 8 + (base & 7)] ^ t.tr[drop & 7]);
+    fh = gp_srol_n(fh ^ t.f(last, base) ^ t.f(0, drop), 1);
+    rh = gp_sror1(rh ^ t.r(last, base) ^ t.r(0, drop));
   } else {
-    fh = gp_sror1(fh ^ t.tf[t.cls[base]] ^ t.tf[last * 5 + t.cls[drop]]);
-    rh = gp_srol_n(rh ^ t.tr[base & 7] ^ t.tr[last * 8 + (drop & 7)], 1);
+    fh = gp_sror1(fh ^ t.f(0, base) ^ t.f(last, drop));
+    rh = gp_srol_n(rh ^ t.r(0, base) ^ t.r(last, drop), 1);
   }
 }
 

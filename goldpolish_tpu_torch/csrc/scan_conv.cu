@@ -45,6 +45,15 @@
 //    16-byte loads of the aligned chunks that cover them (rows start at
 //    any byte offset, so the tile sits at offset `a` < 16 in its buffer),
 //    with byte loads only for a chunk that crosses an end of the tensor;
+//  * any k: the direct tables (104k + 256 bytes) and the tile (2,048 + k
+//    + 31 bytes) take dynamic shared memory sized from k at launch (at k
+//    <= 64 the same bytes as static arrays of that capacity).  Past
+//    ~360, where that and the roll tables would pass 48 KB, the kernel's
+//    second form reads the direct tables through the read-only cache and
+//    the bytes straight from the row (gp_scan_kernel<kPow2, false>): each
+//    thread's first window still costs 2k table loads, now from L1, and
+//    nothing else changes.  The roll holds at every k: srol^k is taken
+//    mod 31 and mod 33, not bounded by 64;
 //  * all eight hashes of a run are computed before the first probe; the
 //    probes then go in h rounds: round i computes the bit index of hash i
 //    for every window still alive, starts those loads together (up to 8
@@ -75,52 +84,26 @@ constexpr int kRun = 8;  // windows per thread: a multiple of 8, kRun / 8 output
 constexpr int kScanTile = kScanThreads * kRun;  // windows per block
 constexpr int kChunk = 16;                      // bytes per staging load
 
-template <bool kPow2>
-__global__ void __launch_bounds__(kScanThreads)
-gp_scan_kernel(const uint32_t* __restrict__ words, uint64_t bits, int h, int k,
-               const uint8_t* __restrict__ codes, int64_t B, int64_t L, int64_t nw,
-               int64_t nbytes, const uint64_t* __restrict__ tf,
-               const uint64_t* __restrict__ tr, const uint8_t* __restrict__ fclass,
-               uint64_t kmul, uint8_t* __restrict__ out) {
-  __shared__ GpWindowTables s_t;
-  __shared__ GpRollTables s_r;
-  // the tile's bytes from offset a on; every chunk is loaded whole
-  __shared__ __align__(kChunk) uint8_t s_raw[kScanTile + kGpMaxK + 2 * kChunk];
+// The dynamic shared memory of gp_scan_kernel<kPow2, true> at k: the
+// direct tables, then the tile's bytes from offset a on (every chunk is
+// loaded whole).
+int64_t scan_smem_bytes(int k) {
+  return gp_table_bytes(k) + kScanTile + k + 2 * kChunk;
+}
 
-  const int64_t row = blockIdx.y;
-  const int64_t w0 = (int64_t)blockIdx.x * kScanTile;
-  gp_load_window_tables(s_t, k, tf, tr, fclass);
-  // bytes [w0, w0 + kScanTile + k - 1) of the row.  Bytes past the row's
-  // end are read only by windows >= nw, which are never probed, so
-  // whatever the chunk holds there (the next row, or 0 past the tensor)
-  // is never seen.
-  const uint8_t* src = codes + row * L + w0;
-  const int a = (int)((uintptr_t)src & (kChunk - 1));
-  const uint8_t* lo = codes;
-  const uint8_t* hi = codes + B * L;
-  const int nchunks = (a + kScanTile + k - 1 + kChunk - 1) / kChunk;
-  for (int c = threadIdx.x; c < nchunks; c += kScanThreads) {
-    const uint8_t* g = src - a + (int64_t)c * kChunk;
-    if (g >= lo && g + kChunk <= hi) {
-      *(uint4*)(s_raw + c * kChunk) = __ldg((const uint4*)g);
-    } else {
-      for (int i = 0; i < kChunk; ++i)
-        s_raw[c * kChunk + i] = (g + i >= lo && g + i < hi) ? g[i] : 0;
-    }
-  }
-  __syncthreads();
-  gp_load_roll_tables(s_r, s_t, k);
-  __syncthreads();
-
-  const int64_t w = w0 + (int64_t)threadIdx.x * kRun;  // the run's first window
-  if (w >= nw) return;
-  const uint8_t* s = s_raw + a + threadIdx.x * kRun;
+// Window hashes from the direct tables `t` and the run's bytes byte(j).
+template <bool kPow2, class T, class Byte>
+__device__ __forceinline__ void scan_run(const uint32_t* __restrict__ words, uint64_t bits,
+                                         int h, int k, int64_t w, int64_t nw,
+                                         int64_t nbytes, int64_t row, uint64_t kmul,
+                                         const T& t, const GpRollTables& s_r, Byte byte,
+                                         uint8_t* __restrict__ out) {
   uint64_t base[kRun], fh, rh;
-  gp_window_hash(s_t, k, [s](int j) { return s[j]; }, fh, rh);
+  gp_window_hash(t, k, byte, fh, rh);
   base[0] = fh + rh;
 #pragma unroll
   for (int q = 1; q < kRun; ++q) {
-    gp_roll(s_r, fh, rh, s[q - 1], s[q - 1 + k]);
+    gp_roll(s_r, fh, rh, byte(q - 1), byte(q - 1 + k));
     base[q] = fh + rh;
   }
   // window 8j + r of the run is bit r of its byte j; a window past the
@@ -158,6 +141,64 @@ gp_scan_kernel(const uint32_t* __restrict__ words, uint64_t bits, int h, int k,
     if (m > 8 * j) dst[j] = (uint8_t)present[j];
 }
 
+// kSmem: the direct tables and the tile in dynamic shared memory
+// (scan_smem_bytes); else the tables from device memory and the bytes
+// from the row.
+template <bool kPow2, bool kSmem>
+__global__ void __launch_bounds__(kScanThreads)
+gp_scan_kernel(const uint32_t* __restrict__ words, uint64_t bits, int h, int k,
+               const uint8_t* __restrict__ codes, int64_t B, int64_t L, int64_t nw,
+               int64_t nbytes, const uint64_t* __restrict__ tf,
+               const uint64_t* __restrict__ tr, const uint8_t* __restrict__ fclass,
+               uint64_t kmul, uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t s_dyn[];
+  __shared__ GpRollTables s_r;
+
+  const int64_t row = blockIdx.y;
+  const int64_t w0 = (int64_t)blockIdx.x * kScanTile;
+  const int64_t w = w0 + (int64_t)threadIdx.x * kRun;  // the run's first window
+  if constexpr (kSmem) {
+    const GpTableRef t = gp_table_ref(s_dyn, k);
+    uint8_t* s_raw = s_dyn + gp_table_bytes(k);
+    gp_load_window_tables(t, k, tf, tr, fclass);
+    // bytes [w0, w0 + kScanTile + k - 1) of the row.  Bytes past the row's
+    // end are read only by windows >= nw, which are never probed, so
+    // whatever the chunk holds there (the next row, or 0 past the tensor)
+    // is never seen.
+    const uint8_t* src = codes + row * L + w0;
+    const int a = (int)((uintptr_t)src & (kChunk - 1));
+    const uint8_t* lo = codes;
+    const uint8_t* hi = codes + B * L;
+    const int nchunks = (a + kScanTile + k - 1 + kChunk - 1) / kChunk;
+    for (int c = threadIdx.x; c < nchunks; c += kScanThreads) {
+      const uint8_t* g = src - a + (int64_t)c * kChunk;
+      if (g >= lo && g + kChunk <= hi) {
+        *(uint4*)(s_raw + c * kChunk) = __ldg((const uint4*)g);
+      } else {
+        for (int i = 0; i < kChunk; ++i)
+          s_raw[c * kChunk + i] = (g + i >= lo && g + i < hi) ? g[i] : 0;
+      }
+    }
+    __syncthreads();
+    gp_load_roll_tables(s_r, t, k);
+    __syncthreads();
+    if (w >= nw) return;
+    const uint8_t* s = s_raw + a + threadIdx.x * kRun;
+    scan_run<kPow2>(words, bits, h, k, w, nw, nbytes, row, kmul, t, s_r,
+                    [s](int j) { return s[j]; }, out);
+  } else {
+    const GpGlobalTables t{tf, tr, fclass};
+    gp_load_roll_tables(s_r, t, k);
+    __syncthreads();
+    if (w >= nw) return;
+    // bytes past the row's end are read only by windows >= nw: 0 here
+    const uint8_t* s = codes + row * L + w;
+    const int64_t left = L - w;
+    scan_run<kPow2>(words, bits, h, k, w, nw, nbytes, row, kmul, t, s_r,
+                    [s, left](int j) { return j < left ? __ldg(s + j) : (uint8_t)0; }, out);
+  }
+}
+
 }  // namespace
 
 // codes: uint8[B, L] row-major (device); words: uint32[ceil(bits/32)];
@@ -169,14 +210,17 @@ extern "C" int gp_scan_present_packed(const void* words, uint64_t bits, int h,
                                       int64_t L, const void* tf, const void* tr,
                                       const void* fclass, uint64_t kmul,
                                       void* out, void* stream) {
-  if (k < 1 || k > kGpMaxK || h < 1 || bits == 0 || B > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (k < 1 || h < 1 || bits == 0 || B > 65535) return (int)cudaErrorInvalidValue;
   const int64_t nw = L - k + 1;
   if (nw <= 0 || B <= 0) return 0;
   const int64_t nbytes = (nw + 7) / 8;
   dim3 grid((unsigned)((nw + kScanTile - 1) / kScanTile), (unsigned)B);
-  auto kernel = (bits & (bits - 1)) == 0 ? gp_scan_kernel<true> : gp_scan_kernel<false>;
-  kernel<<<grid, kScanThreads, 0, (cudaStream_t)stream>>>(
+  const bool pow2 = (bits & (bits - 1)) == 0;
+  const int64_t smem = scan_smem_bytes(k);
+  const bool in_smem = smem + (int64_t)sizeof(GpRollTables) <= kGpSmemBytes;
+  auto kernel = in_smem ? (pow2 ? gp_scan_kernel<true, true> : gp_scan_kernel<false, true>)
+                        : (pow2 ? gp_scan_kernel<true, false> : gp_scan_kernel<false, false>);
+  kernel<<<grid, kScanThreads, in_smem ? (size_t)smem : 0, (cudaStream_t)stream>>>(
       (const uint32_t*)words, bits, h, k, (const uint8_t*)codes, B, L, nw, nbytes,
       (const uint64_t*)tf, (const uint64_t*)tr, (const uint8_t*)fclass, kmul,
       (uint8_t*)out);

@@ -66,11 +66,14 @@ constexpr int kMaxC = 341;
 constexpr int kMaxT = 64;
 constexpr int kMaxMI = 5;
 constexpr int kMaxMD = 7;
+// k <= 64, as the native walker that replays the tables (polish/ntedit_gpu.py
+// arms this kernel only there); it sizes the static shared memory
+constexpr int kEvalMaxK = 64;
 constexpr int kCompactThreads = 1024;
 constexpr int kSiteWarps = 8;      // warps per se_sites block
 constexpr int kMaxSiteBlocks = 1056;
 constexpr int kInsThreads = 128;
-constexpr int kSiteBytes = 2 * kGpMaxK + kMaxMD + 2;  // s[w .. w + 2k + 8]
+constexpr int kSiteBytes = 2 * kEvalMaxK + kMaxMD + 2;  // s[w .. w + 2k + 8]
 constexpr int kPadRow = 16;        // gate[4] | sub_sup[4] | del_sup[MD] | ins_lane @15
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -126,13 +129,13 @@ se_tile(Probe pb, Shape sh, const uint8_t* __restrict__ codes,
         const uint8_t* __restrict__ fclass, const uint8_t* __restrict__ accepted,
         uint8_t* __restrict__ packed, int64_t nbytes, int32_t* __restrict__ tile_cnt,
         int32_t* __restrict__ tile_heads, int cap) {
-  __shared__ GpWindowTables s_t;
+  __shared__ GpWindowTables<kEvalMaxK> s_t;
   __shared__ GpRollTables s_r;
   __shared__ uint8_t s_acc[256];
-  __shared__ uint8_t s_codes[kTile + 3 * kGpMaxK];
-  __shared__ uint8_t s_pres[kTile + 2 * kGpMaxK];
-  __shared__ uint8_t s_clean[kTile + 2 * kGpMaxK];
-  __shared__ uint8_t s_hot[kTile + kGpMaxK];
+  __shared__ uint8_t s_codes[kTile + 3 * kEvalMaxK];
+  __shared__ uint8_t s_pres[kTile + 2 * kEvalMaxK];
+  __shared__ uint8_t s_clean[kTile + 2 * kEvalMaxK];
+  __shared__ uint8_t s_hot[kTile + kEvalMaxK];
 
   const int k = sh.k;
   const int64_t row = blockIdx.y, w0 = (int64_t)blockIdx.x * kTile;
@@ -285,7 +288,7 @@ se_sites(Probe pb, Shape sh, Consts cs, const uint8_t* __restrict__ codes,
          int8_t* __restrict__ sub_sup, int8_t* __restrict__ del_sup,
          int8_t* __restrict__ ins_lane, uint32_t* __restrict__ need_bits,
          uint8_t* __restrict__ pad_row) {
-  __shared__ GpWindowTables s_t;
+  __shared__ GpWindowTables<kEvalMaxK> s_t;
   __shared__ uint8_t s_sb[kSiteWarps][kSiteBytes];
   __shared__ int s_cnt[kSiteWarps][8 + kMaxMD];  // gate[4] | sub[4] | del[MD]
 
@@ -378,7 +381,7 @@ se_ins(Probe pb, Shape sh, Consts cs, const uint8_t* __restrict__ codes,
        int8_t* __restrict__ sub_sup, int8_t* __restrict__ del_sup,
        int8_t* __restrict__ ins_lane, uint8_t* __restrict__ ins_ok,
        int8_t* __restrict__ ins_sup) {
-  __shared__ GpWindowTables s_t;
+  __shared__ GpWindowTables<kEvalMaxK> s_t;
   __shared__ uint8_t s_sb[kSiteBytes];
   __shared__ uint64_t s_ref_f[kMaxMI * kMaxT];
   __shared__ uint64_t s_ref_r[kMaxMI * kMaxT];
@@ -548,7 +551,7 @@ extern "C" int gp_scan_eval(
     void* sub_sup, void* del_sup, void* ins_lane, void* ins_ok, void* ins_sup,
     void* stream) {
   const int64_t nw = L - k + 1;
-  if (k < 1 || k > kGpMaxK || h < 1 || h > 16 || jump < 1 || bits == 0 ||
+  if (k < 1 || k > kEvalMaxK || h < 1 || h > 16 || jump < 1 || bits == 0 ||
       max_ins < 0 || max_ins > kMaxMI || max_del < 0 || max_del > kMaxMD ||
       C < 0 || C > kMaxC || T < 0 || T > kMaxT || S < 1 || SI < 1 || R < 1 ||
       R > 65535 || nw < 1 || R * nw >= (int64_t)INT32_MAX)

@@ -64,7 +64,13 @@
 //    enough for 7-8 blocks an SM: a ring of 8 or 16 in blocks of 256 (more
 //    registers a thread, fewer warps an SM) ran slower on the H100;
 //  * the bit index through gp_bit_index<kPow2> (the power-of-two filter is
-//    instantiated apart: straight-line code; 64-bit modulo otherwise).
+//    instantiated apart: straight-line code; 64-bit modulo otherwise);
+//  * any k and any (max_ins, max_del): the direct tables take dynamic
+//    shared memory sized from k at launch (at k <= 64 the bytes of static
+//    arrays of that capacity), or, past ~390 where they would pass 48 KB beside
+//    the roll tables, are read through the read-only cache (kSmem false);
+//    a patch reads its bytes through the site's context, the contig's own
+//    bytes or 0 past its end, so no suffix bound limits max_ins.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -185,8 +191,8 @@ __device__ __forceinline__ void window_probes(const SiteEvalArgs& a, int nj, Has
 
 // The checked windows js[0 .. nj) of the patch whose byte q is byte(q):
 // the first hashed directly, the rest rolled to.
-template <bool kPow2, class Byte, class Emit>
-__device__ __forceinline__ void patch_probes(const SiteEvalArgs& a, const GpWindowTables& t,
+template <bool kPow2, class T, class Byte, class Emit>
+__device__ __forceinline__ void patch_probes(const SiteEvalArgs& a, const T& t,
                                              const GpRollTables& r, Byte byte,
                                              const int32_t* __restrict__ js, int nj,
                                              Emit emit) {
@@ -206,13 +212,38 @@ __device__ __forceinline__ void patch_probes(const SiteEvalArgs& a, const GpWind
 
 // The XOR of positions q0 .. q1 of window j (its byte q is byte(q)) into
 // (f, r); an empty range adds nothing.
-template <class Byte>
-__device__ __forceinline__ void xor_positions(const GpWindowTables& t, int j, int q0, int q1,
-                                              Byte byte, uint64_t& f, uint64_t& r) {
+template <class T, class Byte>
+__device__ __forceinline__ void xor_positions(const T& t, int j, int q0, int q1, Byte byte,
+                                              uint64_t& f, uint64_t& r) {
   for (int q = q0; q <= q1; ++q) {
     const uint8_t c = byte(q);
-    f ^= t.tf[(q - j) * 5 + t.cls[c]];
-    r ^= t.tr[(q - j) * 8 + (c & 7)];
+    f ^= t.f(q - j, c);
+    r ^= t.r(q - j, c);
+  }
+}
+
+// The direct tables of a block: staged in dynamic shared memory
+// (gp_table_bytes(k)) when kSmem, else read from device memory.
+template <bool kSmem>
+struct SiteTablesOf {
+  using type = GpTableRef;
+};
+template <>
+struct SiteTablesOf<false> {
+  using type = GpGlobalTables;
+};
+
+// Every thread of the block calls it; __syncthreads() before reading.
+template <bool kSmem>
+__device__ __forceinline__ typename SiteTablesOf<kSmem>::type site_tables(
+    void* smem, int k, const uint64_t* __restrict__ tf, const uint64_t* __restrict__ tr,
+    const uint8_t* __restrict__ fclass) {
+  if constexpr (kSmem) {
+    const GpTableRef t = gp_table_ref(smem, k);
+    gp_load_window_tables(t, k, tf, tr, fclass);
+    return t;
+  } else {
+    return GpGlobalTables{tf, tr, fclass};
   }
 }
 
@@ -227,11 +258,12 @@ __device__ __forceinline__ SiteCtx site_ctx(const SiteEvalArgs& a, int64_t s, ui
 // The first launch: every entry of PartsLayout, one thread each.  An
 // insertion patch is prefix(k-1) + combo (cl bytes) + draft + suffix; its
 // window j covers positions j .. j+k-1.
+template <bool kSmem>
 __global__ void __launch_bounds__(kSiteThreads)
 gp_site_parts_kernel(SiteEvalArgs a, const uint64_t* __restrict__ tf,
                      const uint64_t* __restrict__ tr, const uint8_t* __restrict__ fclass) {
-  __shared__ GpWindowTables s_t;
-  gp_load_window_tables(s_t, a.k, tf, tr, fclass);
+  extern __shared__ __align__(16) uint8_t s_dyn[];
+  const auto s_t = site_tables<kSmem>(s_dyn, a.k, tf, tr, fclass);
   __syncthreads();
 
   const int k = a.k, MI = a.max_ins;
@@ -268,13 +300,13 @@ gp_site_parts_kernel(SiteEvalArgs a, const uint64_t* __restrict__ tf,
   }
 }
 
-template <bool kPow2>
+template <bool kPow2, bool kSmem>
 __global__ void __launch_bounds__(kSiteThreads)
 gp_site_eval_kernel(SiteEvalArgs a, const uint64_t* __restrict__ tf,
                     const uint64_t* __restrict__ tr, const uint8_t* __restrict__ fclass) {
-  __shared__ GpWindowTables s_t;
+  extern __shared__ __align__(16) uint8_t s_dyn[];
   __shared__ GpRollTables s_r;
-  gp_load_window_tables(s_t, a.k, tf, tr, fclass);
+  const auto s_t = site_tables<kSmem>(s_dyn, a.k, tf, tr, fclass);
   __syncthreads();
   gp_load_roll_tables(s_r, s_t, a.k);
   __syncthreads();
@@ -370,7 +402,7 @@ extern "C" int gp_site_eval(const void* words, uint64_t bits, int h, int k, cons
                             const void* js, int n_sub, int n_ins, int n_del, void* gate,
                             void* sub_sup, void* ins_sup, void* del_pr, void* parts,
                             void* stream) {
-  if (k < 1 || k > kGpMaxK || h < 1 || bits == 0 || C < 1 || C > n_tab || max_ins < 1 ||
+  if (k < 1 || h < 1 || bits == 0 || C < 1 || C > n_tab || max_ins < 1 ||
       max_del < 0 || n_sub < 0 || n_ins < 0 || n_del < 0 || n < k ||
       ((uintptr_t)parts & 15) != 0)
     return (int)cudaErrorInvalidValue;
@@ -389,18 +421,24 @@ extern "C" int gp_site_eval(const void* words, uint64_t bits, int h, int k, cons
   const int64_t cap = (int64_t)sms * kSiteBlocksPerSm;
   const PartsLayout lay(S, n_ins, max_ins, C);
   const int64_t n_parts = lay.n_site + lay.n_combo;
+  // the direct tables in shared memory while they fit beside the roll tables
+  const int64_t smem = gp_table_bytes(k);
+  const bool in_smem = smem + (int64_t)sizeof(GpRollTables) <= kGpSmemBytes;
+  const size_t dyn = in_smem ? (size_t)smem : 0;
   if (n_parts > 0) {
     const int64_t blocks = (n_parts + kSiteThreads - 1) / kSiteThreads;
-    gp_site_parts_kernel<<<(unsigned)(blocks < cap ? blocks : cap), kSiteThreads, 0,
-                           (cudaStream_t)stream>>>(a, (const uint64_t*)tf, (const uint64_t*)tr,
-                                                   (const uint8_t*)fclass);
+    auto parts_kernel = in_smem ? gp_site_parts_kernel<true> : gp_site_parts_kernel<false>;
+    parts_kernel<<<(unsigned)(blocks < cap ? blocks : cap), kSiteThreads, dyn,
+                   (cudaStream_t)stream>>>(a, (const uint64_t*)tf, (const uint64_t*)tr,
+                                           (const uint8_t*)fclass);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   const int64_t total = S * (4 + 4 * (int64_t)C + max_del);
   const int64_t blocks = (total + kSiteThreads - 1) / kSiteThreads;
-  auto kernel = (bits & (bits - 1)) == 0 ? gp_site_eval_kernel<true>
-                                         : gp_site_eval_kernel<false>;
-  kernel<<<(unsigned)(blocks < cap ? blocks : cap), kSiteThreads, 0, (cudaStream_t)stream>>>(
+  const bool pow2 = (bits & (bits - 1)) == 0;
+  auto kernel = in_smem ? (pow2 ? gp_site_eval_kernel<true, true> : gp_site_eval_kernel<false, true>)
+                        : (pow2 ? gp_site_eval_kernel<true, false> : gp_site_eval_kernel<false, false>);
+  kernel<<<(unsigned)(blocks < cap ? blocks : cap), kSiteThreads, dyn, (cudaStream_t)stream>>>(
       a, (const uint64_t*)tf, (const uint64_t*)tr, (const uint8_t*)fclass);
   return (int)cudaGetLastError();
 }

@@ -5,9 +5,11 @@ Falls back gracefully: callers should catch NativeUnavailable and use the
 NumPy paths in ops/.
 
 Port counterpart: goldpolish_tpu/native/__init__.py, copied with the
-imports renamed.  The .so is built into this package's own native/
-directory (the reference caches its build next to its own source), through
-a per-process temp name so parallel test workers cannot interleave writes.
+imports renamed, and `extend4` raising where gp_extend4 refuses its
+arguments (the host DBG then takes its Python path).  The .so is built
+into this package's own native/ directory (the reference caches its build
+next to its own source), through a per-process temp name so parallel test
+workers cannot interleave writes.
 """
 
 from __future__ import annotations
@@ -214,7 +216,9 @@ def pack2(codes: np.ndarray, exc_cap: int = 64):
 def extend4(kmer: bytes, hash_num: int, bf, forward: bool) -> int:
     """4-bit presence mask of the A/C/G/T de Bruijn extensions of kmer
     (gp_extend4): one C call replacing the BFS's per-vertex Python seed +
-    changelast rehashes + tuple probes."""
+    changelast rehashes + tuple probes).  Raises where gp_extend4 refuses
+    (k > 64 or hash_num > 16: it returns -1, which the JAX package's copy
+    passes on, so its host DBG reads every extension as present there)."""
     L = lib()
     if not hasattr(L, "gp_extend4_configured"):
         L.gp_extend4.argtypes = [
@@ -223,10 +227,14 @@ def extend4(kmer: bytes, hash_num: int, bf, forward: bool) -> int:
         ]
         L.gp_extend4.restype = ctypes.c_int32
         L.gp_extend4_configured = True
-    return L.gp_extend4(
+    mask = L.gp_extend4(
         kmer, len(kmer), hash_num, _u8ptr(bf.array), bf.bytes,
         1 if forward else 0,
     )
+    if mask < 0:
+        raise ValueError(f"gp_extend4 takes k <= 64 and hash_num <= 16, got "
+                         f"k={len(kmer)} hash_num={hash_num}")
+    return mask
 
 
 def bind_extend4p():

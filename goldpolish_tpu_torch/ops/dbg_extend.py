@@ -43,7 +43,6 @@ from . import bloom_device
 from .cuda_build import LaunchCounter, check, lib, require_cuda, to_device, to_host
 from .scan_conv import _device_tables, _kmul
 
-MAX_K = 64  # csrc/nthash_roll.cuh: kGpMaxK
 MAX_H = 16  # csrc/dbg_extend.cu: kExtMaxH
 MAX_STEPS = 64  # csrc/dbg_extend.cu: kExtMaxD
 # D, the levels one DeviceDBG round walks from each frontier vertex (PERF.md
@@ -56,7 +55,7 @@ _LAUNCHES = LaunchCounter()  # kernel 7's launches, at any D
 
 def _check(bits: int, hash_num: int, k: int, verts: torch.Tensor, n_succ: int,
            steps: int = 1) -> None:
-    if not 1 <= k <= MAX_K or not 1 <= hash_num <= MAX_H or not 1 <= bits < (1 << 62):
+    if k < 1 or not 1 <= hash_num <= MAX_H or not 1 <= bits < (1 << 62):
         raise ValueError(f"unsupported extension probe parameters k={k} "
                          f"h={hash_num} bits={bits}")
     if not 1 <= steps <= MAX_STEPS:

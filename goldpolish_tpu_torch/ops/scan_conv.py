@@ -160,7 +160,7 @@ def scan_present_packed(words: torch.Tensor, bits: int, h: int, k: int,
     plain version; CUDA tensors launch the kernel on the current stream."""
     if codes.dim() != 2:
         raise ValueError(f"codes must be [B, L], got shape {tuple(codes.shape)}")
-    if not 1 <= k <= 64 or h < 1 or bits < 1 or bits >= (1 << 62):
+    if k < 1 or h < 1 or bits < 1 or bits >= (1 << 62):
         raise ValueError(f"unsupported scan parameters k={k} h={h} bits={bits}")
     if codes.device.type == "cpu":
         return scan_present_packed_reference(words, bits, h, k, codes)

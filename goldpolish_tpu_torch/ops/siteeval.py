@@ -74,8 +74,14 @@ class SiteTables:
 
     @property
     def suffix_len(self) -> int:
-        """Draft bases needed after p: s[p+1 : p+max_del+k] covers all."""
-        return self.k + self.max_del
+        """Draft bases gathered after p: s[p+1 : p+1+suffix_len].  The
+        deletion patches read k + max_del - 1 of them, the insertion
+        patches' gathers up to offset k + max_ins - 2 (a combo of one base
+        at the patch's last position), so both fit whatever (max_ins,
+        max_del) is.  The JAX package's k + max_del falls short when
+        max_ins > max_del + 1 (its gather then fills the bytes past the
+        end; they lie past every checked window)."""
+        return self.k + max(self.max_del, self.max_ins - 1)
 
 
 @lru_cache(maxsize=8)

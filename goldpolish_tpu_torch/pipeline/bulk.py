@@ -15,15 +15,15 @@ chain executes with the TPU two-phase editor and the Konnector gap filler.
 Batches run concurrently under an asyncio pool with a strictly ordered
 writer and a checkpoint manifest (pipeline.engine).
 
-Port counterpart: goldpolish_tpu/pipeline/bulk.py, copied with these cuts,
-each raising at startup until ported (ROADMAP.md queue 1): the internal
-minimizer mapper and multi-host runs.  device_bf_build (jax backend) fills
-every batch with kernel 5 on the config's device; the overlapped fill
-(--fill-overlap on the hybrid or jax backend, without device_bf_build)
-claims batches from the tail.  Repairs of the JAX code: a failed host hedge
-waits for the device fill, a failed device fill raises (never masked by a
-host fill), device_bf_build off the jax backend raises (the JAX package
-ignores it there), and the startup k bound comes from bloom_sort.KHALO.
+Port counterpart: goldpolish_tpu/pipeline/bulk.py, copied with one cut,
+raising at startup until ported (ROADMAP.md queue 1): multi-host runs.
+device_bf_build (jax backend) fills every batch with kernel 5 on the
+config's device; the overlapped fill (--fill-overlap on the hybrid or jax
+backend, without device_bf_build) claims batches from the tail.  Repairs
+of the JAX code: a failed host hedge waits for the device fill, a failed
+device fill raises (never masked by a host fill), device_bf_build off the
+jax backend raises (the JAX package ignores it there), and the startup k
+bound comes from bloom_sort.KHALO.
 The per-batch chain is the reference's whole chain; as in the JAX package,
 the sealer runs its host search for the numpy and hybrid backends alike
 (the whole-search device BFS is seal_records' hybrid arm, which bulk does
@@ -136,10 +136,26 @@ def resolve_mappings(cfg: PipelineConfig, target_index,
                 check=True,
             )
     elif not path:
-        raise NotImplementedError(
-            f"mapper '{cfg.mapper}' is not on PATH and the internal "
-            "minimizer mapper is not ported yet: pass --mappings"
+        from .. import mapper as internal_mapper
+
+        if cfg.mapper != "internal":
+            log.warning(
+                "mapper '%s' not on PATH; using the internal minimizer mapper",
+                cfg.mapper,
+            )
+        path = (
+            f"{os.path.basename(cfg.seqs_to_polish)}"
+            f".{os.path.basename(cfg.polishing_seqs)}.internal.mapping.tsv"
         )
+        if not fresh(path):
+            # tmp next to the destination: the workspace is usually /dev/shm
+            # while the artifact lands in the CWD, and rename(2) across
+            # filesystems raises EXDEV
+            tmp = path + ".tmp"
+            internal_mapper.write_mapping_tsv(
+                cfg.seqs_to_polish, cfg.polishing_seqs, tmp
+            )
+            os.replace(tmp, path)
     return AllMappings.load(
         path, target_index,
         mx_max_mapped_seqs_per_target_10kbp=cfg.mx_max_reads_per_10kbp,
@@ -256,8 +272,7 @@ def make_builder(cfg: PipelineConfig, workdir: str) -> BFBuilder:
 def check_ported(cfg: PipelineConfig) -> None:
     """Refuse, at startup, a configuration this port cannot run: not at all
     (device_bf_build off the jax backend, which the JAX package ignores
-    silently; a k past the extension probe's bound on the jax backend's
-    sealer), or not here (a device backend on cuda without CUDA, never a
+    silently), or not here (a device backend on cuda without CUDA, never a
     CPU fallback; a fork pool beside the card)."""
     if cfg.backend not in ("numpy", "hybrid", "jax"):
         raise ValueError(f"unknown backend {cfg.backend!r}")
@@ -266,14 +281,6 @@ def check_ported(cfg: PipelineConfig) -> None:
             "device_bf_build acts only with the jax backend; use "
             "--fill-overlap for the device fill on the hybrid backend"
         )
-    if cfg.backend == "jax" and cfg.run_sealer:
-        from ..ops.dbg_extend import MAX_K
-
-        if max(cfg.k_values) > MAX_K:
-            raise ValueError(
-                f"the jax backend's sealer probes k <= {MAX_K} on the device; "
-                f"got {cfg.k_values} — pass --no-sealer or drop the larger k"
-            )
     if cfg.process_pool and cfg.backend != "numpy":
         raise ValueError(
             "--process-pool requires --backend numpy (forked workers cannot "

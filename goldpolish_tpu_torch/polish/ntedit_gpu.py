@@ -9,8 +9,9 @@ device; the two-phase Python engine walks).  The hybrid scanner is lazy;
 when it materializes it arms the fused phase-A eval (ops/scan_eval, K2)
 under GPTPU_DEVICE_EVAL (default on; "0" turns it off) with the JAX
 engine's conditions, and the walker then replays trials from the eval's
-tables.  The fork pool cannot serve the card (CUDA does not survive fork):
-processes > 1 raises where the device work runs on CUDA.
+tables.  processes > 1 walks in a pool whose workers start from a fork
+server (utils/procs.get_pool), never forked from this process and its CUDA
+context: they do host work only, on any backend and device.
 
 The reference edits each contig with a sequential rolling scan — one Bloom
 probe per position, branchy candidate trials at missing sites
@@ -266,7 +267,7 @@ def _pm_task(cfg_blob: bytes, bf_ref: tuple, env_flags: dict,
     tmpfs buffer (bf_ref = (path, bytes)), and presence bits (device- or
     parent-computed) arrive bit-packed.  env_flags carries the parent's
     walk-relevant env at submit time — a persistent pool's inherited
-    environ is frozen at its first fork."""
+    environ is frozen when its workers start."""
     import os as _os
 
     for name, val in env_flags.items():
@@ -452,7 +453,7 @@ class NtEditGPU:
     @staticmethod
     def _env_flags() -> dict:
         """Walk-relevant env captured at submit time (persistent-pool
-        workers inherit environ from their first fork, not the caller's)."""
+        workers inherit environ from their start, not the caller's)."""
         import os as _os
 
         return {
@@ -643,12 +644,12 @@ class NtEditGPU:
         per contig.  Returns a list of (edited, records, editor) triples in
         input order.
 
-        processes > 1 runs the commit walks in a fork pool (copy-on-write
-        sharing of the Bloom filter and precomputed presents; workers use
-        the numpy backend — they must not touch the device).  Contigs longer than
-        shard_bases additionally split into independent slices at clean
-        cut points (_find_cuts) so one giant contig still uses every core;
-        reassembly is byte-exact.  The third triple element is then a
+        processes > 1 runs the commit walks in a worker pool (the Bloom
+        filter shared through tmpfs, precomputed presents through the call
+        pipe; workers use the numpy backend and never touch the device).
+        Contigs longer than shard_bases additionally split into
+        independent slices at clean cut points (_find_cuts) so one giant
+        contig still uses every core; reassembly is byte-exact.  The third triple element is then a
         lightweight EditStats instead of the editor object.
 
         On the hybrid backend the dense scans run through the lookahead
@@ -718,12 +719,6 @@ class NtEditGPU:
                          shard_bases: int):
         """Host-scan polish_many (and the jax device-eval backend's path)."""
         presents: dict[int, np.ndarray] = {}
-        if self._device_eval and processes > 1 and self._words.device.type == "cuda":
-            # CUDA does not survive fork(); see _polish_many_pipelined
-            raise RuntimeError(
-                "polish_many(processes > 1) forks a worker pool, which cannot "
-                "serve the jax backend on CUDA; use processes=0"
-            )
         if self._device_eval and len(seqs) > 1:
             import torch
 
@@ -842,17 +837,11 @@ class NtEditGPU:
         if processes > 1 and (
             len(seqs) > 1 or any(len(s) > shard_bases for s in seqs)
         ):
-            if self._scanner.device.type == "cuda":
-                # CUDA does not survive fork(); a pool forked before CUDA
-                # was first touched is ROADMAP queue 1 item 6
-                raise RuntimeError(
-                    "polish_many(processes > 1) forks a worker pool, which "
-                    "cannot serve a CUDA scanner; use processes=0"
-                )
             from ..utils.procs import get_pool
 
-            # persistent pool: its workers were forked at first creation
-            # (utils/procs.get_pool), never mid-device-dispatch
+            # persistent pool: its workers start from the fork server
+            # (utils/procs.get_pool), never from this process and its CUDA
+            # context; they walk on the host
             ex = get_pool(processes)
             blob = self._cfg_blob()
             bf_ref = self._bf_ref()

@@ -14,12 +14,19 @@ edges are defused here:
   region executes inline without touching the team.  Cross-process
   parallelism replaces the in-process OpenMP threads.
 
-Workers must also never touch the jax runtime (inherited device handles
-and dispatch threads are invalid in the child); callers gate pool usage
-to host-only code paths.
+Workers must also never touch the device (inherited device handles and
+dispatch threads are invalid in the child); callers gate pool usage to
+host-only code paths.
 
-Port counterpart: goldpolish_tpu/utils/procs.py, copied with only the imports renamed
-(this package must import without jax).
+Port counterpart: goldpolish_tpu/utils/procs.py, copied with one change:
+the persistent pools of get_pool start their workers from a fork server
+(the forkserver start method), not by forking the caller.  A CUDA context
+does not survive fork(), and the editor's pools are made after the card
+is in use (a hybrid scan or the jax arm's eval before the walks); the fork
+server is a fresh interpreter that never touches CUDA, and its children
+receive all their state through the call pipe and the shared buffers
+below, as the persistent pools already required.  The bulk pipeline's own
+--process-pool keeps fork (copy-on-write state, host backend only).
 """
 
 from __future__ import annotations
@@ -54,10 +61,10 @@ _POOLS: dict = {}
 
 
 def get_pool(processes: int):
-    """Persistent ProcessPoolExecutor (fork start method, PDEATHSIG + OMP
-    guards).  Workers are forked eagerly at creation so later callers never
-    fork mid-flight (forking while jax dispatch threads hold locks is the
-    classic post-fork deadlock; creation time is the caller's safe moment)."""
+    """Persistent ProcessPoolExecutor (forkserver start method, PDEATHSIG +
+    OMP guards).  Workers start eagerly at creation, from the fork server,
+    never from the caller: the caller may hold a CUDA context, which a
+    forked child could not use, and threads holding locks."""
     import concurrent.futures
     import multiprocessing
 
@@ -73,7 +80,7 @@ def get_pool(processes: int):
             pass
     ex = concurrent.futures.ProcessPoolExecutor(
         max_workers=processes,
-        mp_context=multiprocessing.get_context("fork"),
+        mp_context=multiprocessing.get_context("forkserver"),
         initializer=pool_worker_init,
     )
     concurrent.futures.wait([ex.submit(int, 0) for _ in range(processes)])

@@ -167,8 +167,9 @@ def test_extension_probe_matches_jax(R, k):
 def test_extension_probe_refusals():
     bf = bloom.BloomFilter(1 << 12, H, 65)
     verts = torch.zeros(4, 65, dtype=torch.uint8)
+    # any k runs (tests/test_torch_k_beyond_64.py); no filter has 2^62 bits
     with pytest.raises(ValueError, match="unsupported"):
-        dbg_extend.dbg_extend4(_words(bf), int(bf.bits), H, 65, verts, 2)
+        dbg_extend.dbg_extend4(_words(bf), 1 << 62, H, 65, verts, 2)
     with pytest.raises(ValueError, match="unsupported"):
         dbg_extend.dbg_extend4(_words(bf), int(bf.bits), 17, 32, verts[:, :32], 2)
     with pytest.raises(ValueError, match="verts must be"):
@@ -270,14 +271,15 @@ def test_connect_pairs_batch_matches_serial():
 
 
 def test_jax_sealer_k_bound_at_startup(tmp_path):
-    """The extension probe takes k <= 64: a larger k on the jax backend with
-    the sealer on raises before any batch; with --no-sealer it is not the
-    sealer's to refuse."""
+    """The extension probe takes any k, so the startup check bounds no k of
+    the jax backend, with the sealer on or off (the bulk run at -k 72 is in
+    tests/test_torch_k_beyond_64.py)."""
     cfg = PipelineConfig(seqs_to_polish="d.fa", polishing_seqs="r.fq",
                          output_seqs=str(tmp_path / "o.fa"), k_values=[65, 32],
                          backend="jax", device="cpu")
-    with pytest.raises(ValueError, match="k <= 64"):
-        bulk.check_ported(cfg)
+    bulk.check_ported(cfg)
+    cfg.k_values = [1100, 72]
+    bulk.check_ported(cfg)
     cfg.run_sealer = False
     bulk.check_ported(cfg)
 

@@ -146,11 +146,12 @@ def test_refusals():
                              int(bf.bits), tables, 4, 21)
     with pytest.raises(ValueError, match="n_combos"):
         sd.eval_sites_device(codes, np.array([5]), _words(bf), int(bf.bits), tables, 4, 342)
-    with pytest.raises(ValueError, match="max_ins"):
-        sd.eval_sites_device(codes, np.array([5]), _words(bf), int(bf.bits),
-                             siteeval.make_tables(32, JUMP, max_ins=5, max_del=2), 4, 21)
+    # no bound on k or on max_ins against max_del: only what no filter holds
     with pytest.raises(ValueError, match="unsupported"):
-        sd.site_eval(_words(bf), int(bf.bits), 4, torch.from_numpy(codes), len(codes),
+        sd.site_eval(_words(bf), int(bf.bits), 0, torch.from_numpy(codes), len(codes),
+                     torch.tensor([5]), tables, 21)
+    with pytest.raises(ValueError, match="unsupported"):
+        sd.site_eval(_words(bf), 1 << 62, 4, torch.from_numpy(codes), len(codes),
                      torch.tensor([5]), siteeval.make_tables(65, JUMP), 21)
 
 
@@ -210,3 +211,55 @@ def test_cuda_kernel_matches_plain(k, h, nbytes, C, dense):
         assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
     if dense:  # most gates pass the first hash and some fail a later one
         assert 0 < want[0].float().mean() < 1
+
+
+# -- insertions longer than deletions: (max_ins, max_del) = (5, 0) and (3, 0) --
+# The insertion patches' gathers reach suffix offset k + max_ins - 2, past
+# the JAX package's k + max_del suffix; the port's suffix holds
+# k + max(max_del, max_ins - 1) bytes, and kernel 6 reads the contig itself.
+
+
+@pytest.mark.parametrize("mi,md", [(5, 0), (3, 0)])
+@pytest.mark.parametrize("k", [20, 32])
+def test_site_eval_insertions_past_deletions(k, mi, md):
+    draft, bf, sites = _inputs(k, 4, 1 << 12)
+    tables = siteeval.make_tables(k, JUMP, mi, md)
+    assert tables.suffix_len == k + mi - 1
+    codes_dev = np.zeros(1024, np.uint8)
+    codes_dev[: len(draft)] = draft
+    got = sd.eval_sites_device(draft, sites, _words(bf), int(bf.bits), tables, 4,
+                               codes_dev=torch.from_numpy(codes_dev))
+    _assert_supports_equal(got, siteeval.eval_sites_np(draft, sites, bf, tables, 4))
+    _assert_supports_equal(got, _jax_outputs(draft, bf, sites, tables, 4,
+                                             tables.n_combos, codes_dev)[1])
+    assert got.del_support.shape == (len(sites), md)
+
+
+@pytest.mark.parametrize("mi,md", [(5, 0), (3, 0)])
+def test_jax_arm_insertions_past_deletions_match_oracle(mi, md):
+    """The editor's jax arm (the site eval's plain version, reached past 16
+    hot sites) against the native walk (--backend numpy), the scalar
+    oracle and the JAX package's jax backend, output and records."""
+    from goldpolish_tpu.ops import bloom as jbloom
+    from goldpolish_tpu.polish import ntedit_oracle as jne
+    from goldpolish_tpu.polish.ntedit_tpu import NtEditTPU
+    from goldpolish_tpu_torch.polish import ntedit_oracle as ne
+    from goldpolish_tpu_torch.polish.ntedit_gpu import NtEditGPU
+    from test_ntedit_tpu import _genome, _mutate
+
+    k = 32
+    rng = np.random.default_rng([mi, md])
+    truth = _genome(rng, 3000)
+    draft = _mutate(rng, truth, 40).encode()
+    bf = bloom.BloomFilter(1 << 15, 4, k)
+    bf.insert(nt.multi_hashes(nt.canonical_hashes(nt.encode(truth), k), k, 4))
+    jbf = jbloom.BloomFilter(bf.bytes, 4, k)
+    jbf.array[:] = bf.array
+    kw = dict(k=k, h=4, use_ratio=True, max_insertions=mi, max_deletions=md)
+    want = ne.polish_contig(draft, bf, ne.Config(**kw))[:2]
+    assert NtEditGPU(ne.Config(**kw), bf, backend="numpy").polish_contig(draft)[:2] == want
+    calls = sd.eval_sites_device_reference.calls.value
+    got = NtEditGPU(ne.Config(**kw), bf, backend="jax", device="cpu").polish_contig(draft)
+    assert sd.eval_sites_device_reference.calls.value > calls
+    assert got[:2] == want
+    assert NtEditTPU(jne.Config(**kw), jbf, backend="jax").polish_contig(draft)[:2] == want

@@ -238,8 +238,22 @@ def test_unported_paths_refuse(tmp_path, monkeypatch):
     assert bulk.run_bulk(jax_cfg)["contigs"] == 4
     with open(jax_cfg.output_seqs, "rb") as f:
         assert f.read() == _expected_golden()
-    with pytest.raises(NotImplementedError, match="targeted"):
-        cli.main(["d.fa", "r.fq", "o.fa", "--target", "--no-sealer"])
+    # targeted mode is ported: the CLI polishes the soft-masked gap as the
+    # JAX package's CLI does
+    from goldpolish_tpu import cli as jax_cli
+    from test_external_mappers import _targeted_inputs
+
+    draft, reads, paf, _truth = _targeted_inputs(tmp_path)
+    outs = []
+    for name, main, extra in (("jax", jax_cli.main, []),
+                              ("port", cli.main, ["--device", "cpu"])):
+        (tmp_path / name).mkdir()
+        outs.append(str(tmp_path / name / "o.fa"))
+        assert main([draft, reads, outs[-1], "--target", "--no-sealer",
+                     "--mappings", paf, "-k", "32", "-k", "28",
+                     "-m", str(tmp_path / name), *extra]) == 0
+    with open(outs[0], "rb") as a, open(outs[1], "rb") as b:
+        assert a.read() == b.read()
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
     with pytest.raises(NotImplementedError, match="multi-host"):
         bulk.run_bulk(cfg)
