@@ -109,6 +109,26 @@ raises and the script exits non-zero without the result line.
             with --processes 2) -> tools.sealer --lower -> tools.mask ->
             tools.to_upper on one batch, every stage's bytes equal to the
             same chain with --backend numpy.
+            Then K9, two shards and two ranks on the one card: `sharded`,
+            DeviceScanner(devices=("cuda:0", "cuda:0")) against the
+            one-shard scanner, kernel 2 on the kernel phase's truth rows
+            ([4, 2^19 + k - 1] per k) and kernel 4 on the eval phase's rows
+            (both filters), each also on its first 3 rows (the pad row):
+            the scan bit-equal, each shard's nine eval outputs equal to a
+            one-shard call on its rows and their merge
+            (scanpipe.merge_shards) equal to the one-shard call on all
+            rows where no call overflows s_max, each shard launching once
+            (`device_ms` at one and two shards); the hybrid engine with two
+            shards on one batch (the first contig) with its own filters at
+            k = 32, 28, 24, 20, bytes equal to one shard's, kernel 4
+            launched on both; parallel/mesh.sharded_scan_step on a 2 x 2
+            grid, k = 32, against one-shard kernel 2.  `multihost`, the CLI
+            as two processes joined over gloo at 127.0.0.1 (the three
+            JAX_* variables), the default arm and the jax arm, -b 1: each
+            merged output equal to the one-process arm's bytes, each rank
+            polishing batches [r, r + 2] and launching kernel 4 (default)
+            or kernels 6 and 7 (jax); prints each rank's wall and
+            launches (from its log).
             Before the arms, the fill phase: for each of the 4 batches
             (bulk's builder and read choice: ~1,900 reads, ~11.6 Mbases,
             a 10 MiB counting filter and a 4 MiB filter per k), the device
@@ -311,12 +331,17 @@ def phase_kernels(rng):
     got = bp.probe_lo32(words, FILTER_BITS, lo)
     want = bp.probe_lo32_reference(words, FILTER_BITS, lo)
     probe_err = int((got.int() - want.int()).abs().max().item())
+    dev_ms = device_ms(lambda: bp.probe_lo32(words, FILTER_BITS, lo), 50)
+    requests = probe_requests(words, FILTER_BITS, lo)
     probe = {
         "name": "probe_lo32", "shape": list(lo.shape), "filter_bytes": FILTER_BITS // 8,
         "equal": bool(torch.equal(got, want)), "max_abs_err": probe_err,
         "present_share": float(want.float().mean().item()),
         "ms": time_ms(lambda: bp.probe_lo32(words, FILTER_BITS, lo), 50),
-        "device_ms": device_ms(lambda: bp.probe_lo32(words, FILTER_BITS, lo), 50),
+        "device_ms": dev_ms,
+        # the random L2 requests of a row stopping at its first clear bit
+        "l2_requests": requests,
+        "l2_requests_per_s": requests / (dev_ms * 1e-3) if dev_ms else None,
         "plain_ms": time_ms(lambda: bp.probe_lo32_reference(words, FILTER_BITS, lo), 5),
         **bound(tensor_bytes(words, lo, want), lo.numel()),
     }
@@ -327,6 +352,22 @@ def phase_kernels(rng):
     scans = scan_rows(rng, words)
     emit(phase="kernel_scan_edges", **scan_edges())
     return probe, scans
+
+
+def probe_requests(words, bits: int, lo) -> int:
+    """The filter words kernel 1 must load when a row stops at its first
+    clear bit: the rows still alive before each of the h rounds (plain
+    torch, on the tensors' device)."""
+    import torch
+
+    words64 = words.to(torch.int64)
+    alive = torch.ones(lo.shape[0], dtype=torch.bool, device=lo.device)
+    requests = 0
+    for j in range(lo.shape[1]):
+        requests += int(alive.sum().item())
+        idx = lo[:, j].to(torch.int64) & (bits - 1)  # bits: a power of two <= 2^32
+        alive &= ((words64[idx >> 5] >> (idx & 31)) & 1).bool()
+    return requests
 
 
 def truth_scan_inputs(row: int, ks=K_VALUES):
@@ -496,14 +537,16 @@ def mutate(t: str, rng) -> list[str]:
     return d
 
 
-def phase_scan_eval(rng):
-    """scan_eval (kernel 4) against its plain version at the main path's
-    call shape, for every k, on two filters (see the module docstring)."""
+def eval_inputs(rng):
+    """scan_eval's inputs on the main path's call shape, per k: (k, eval
+    config, site tables, then per filter (label, int32 words on the card,
+    codes uint8 [4, EVAL_ROW + k - 1])): rows of a mutated draft against a
+    4 MiB filter of its truth's k-mers, and the same rows with an N every
+    100th byte against a p = 0.75 filter."""
     import torch
 
-    from goldpolish_tpu_torch.ops import bloom, cuda_build
+    from goldpolish_tpu_torch.ops import bloom
     from goldpolish_tpu_torch.ops import nthash as nt
-    from goldpolish_tpu_torch.ops import scan_conv as sc
     from goldpolish_tpu_torch.ops import scan_eval as se
     from goldpolish_tpu_torch.ops import siteeval
     from goldpolish_tpu_torch.polish.multik import ntedit_config_for_k
@@ -514,7 +557,6 @@ def phase_scan_eval(rng):
     draft = np.frombuffer("".join(mutate(truth, rng)).encode(), np.uint8)
     truth = np.frombuffer(truth.encode(), np.uint8)
     p75 = torch.from_numpy(random_words(rng, FILTER_BITS)).to(dev)
-    rows_out = []
     for k in K_VALUES:
         cfg = ntedit_config_for_k(k)
         ecfg = se.EvalConfig(k=k, h=4, jump=cfg.jump, max_ins=cfg.max_insertions,
@@ -529,11 +571,27 @@ def phase_scan_eval(rng):
                          for i in range(4)])
         broken = rows.copy()
         broken[:, ::100] = ord("N")
+        yield k, ecfg, tables, (("truth", words, rows), ("p75_n100", p75, broken))
+
+
+def phase_scan_eval(rng):
+    """scan_eval (kernel 4) against its plain version at the main path's
+    call shape, for every k, on two filters (see the module docstring)."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import cuda_build
+    from goldpolish_tpu_torch.ops import scan_conv as sc
+    from goldpolish_tpu_torch.ops import scan_eval as se
+
+    dev = torch.device("cuda")
+    rows_out = []
+    for k, ecfg, tables, inputs in eval_inputs(rng):
+        rows = inputs[0][2]
         scratch = cuda_build.lib().gp_scan_eval_scratch_bytes(
             4, rows.shape[1], k, EVAL_S_MAX, ecfg.resolved_s_ins())
         cst = se._device_consts(k, ecfg.jump, ecfg.max_ins, ecfg.max_del, str(dev))
         consts = (cst.u64, cst.u8, *sc._device_tables(k, str(dev)))
-        for label, filt, codes in (("truth", words, rows), ("p75_n100", p75, broken)):
+        for label, filt, codes in inputs:
             codes = torch.from_numpy(codes).to(dev)
             got = se.scan_eval(filt, FILTER_BITS, 4, codes, ecfg, tables)
             want = se.scan_eval_reference(filt, FILTER_BITS, 4, codes, ecfg, tables)
@@ -1410,6 +1468,369 @@ def phase_tools(inp: dict) -> dict:
     return line
 
 
+# the sharded phase's shards: two on the one card
+SHARDS = ("cuda:0", "cuda:0")
+
+
+def int_err(got, want) -> int:
+    """Largest absolute difference of two integer arrays (tensors or numpy)
+    of one shape; a shape mismatch raises."""
+    got, want = (np.asarray(t.cpu() if hasattr(t, "cpu") else t, np.int64)
+                 for t in (got, want))
+    if got.shape != want.shape:
+        raise AssertionError(f"shape {got.shape} against {want.shape}")
+    return int(np.abs(got - want).max()) if want.size else 0
+
+
+class ShardTally:
+    """Counts each scanner shard's kernel 2 and kernel 4 launches while
+    active: wraps DeviceScanner.scan_shard and eval_shard, and gives each
+    call the change of the kernel's own launch count (the wrapper's, which
+    it adds to where it launches) across that call.  `scan_total` and
+    `eval_total` are the counts' changes over the whole tally, which the
+    shards' sums must equal."""
+
+    def __enter__(self):
+        from goldpolish_tpu_torch.ops import scan_conv as sc
+        from goldpolish_tpu_torch.ops import scan_eval
+
+        self.scan: dict = {}
+        self.eval: dict = {}
+        self._counters = (sc.scan_present_packed.launches, scan_eval.scan_eval.launches)
+        self._start = [c.value for c in self._counters]
+        self._saved = (sc.DeviceScanner.scan_shard, sc.DeviceScanner.eval_shard)
+        lock = threading.Lock()
+
+        def counted(fn, tally, counter):
+            def call(scanner, s, codes, k):
+                with lock:  # one shard call at a time, so the change is its own
+                    before = counter.value
+                    out = fn(scanner, s, codes, k)
+                    tally[s] = tally.get(s, 0) + counter.value - before
+                return out
+            return call
+
+        sc.DeviceScanner.scan_shard = counted(self._saved[0], self.scan, self._counters[0])
+        sc.DeviceScanner.eval_shard = counted(self._saved[1], self.eval, self._counters[1])
+        return self
+
+    def __exit__(self, *exc):
+        from goldpolish_tpu_torch.ops import scan_conv as sc
+
+        sc.DeviceScanner.scan_shard, sc.DeviceScanner.eval_shard = self._saved
+        self.scan_total, self.eval_total = (
+            c.value - v for c, v in zip(self._counters, self._start))
+        return False
+
+    def check(self, what: str, tally: dict, total: int) -> list[int]:
+        """The two shards' launches; raises unless each launched exactly
+        once and they account for every launch of the kernel."""
+        shards = [tally.get(s, 0) for s in range(2)]
+        if shards != [1, 1] or sum(shards) != total:
+            raise AssertionError(f"{what}: shard launches {shards}, kernel's count "
+                                 f"changed by {total}")
+        return shards
+
+
+def sharded_scan_rows() -> tuple[list[dict], int]:
+    """Kernel 2 through DeviceScanner(devices=SHARDS) against the one-shard
+    scanner on phase_kernels' truth rows, [4, 2^19 + k - 1] per k, and on
+    their first 3 rows (the pad row); returns the rows and the largest
+    error."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import scan_conv as sc
+
+    rows_out, worst = [], 0
+    for k, words, rows in truth_scan_inputs(1 << 19):
+        one = sc.DeviceScanner.from_words(words.view(np.uint32), FILTER_BITS, 4, "cuda:0")
+        two = sc.DeviceScanner.from_words(words.view(np.uint32), FILTER_BITS, 4,
+                                          devices=SHARDS)
+        codes = torch.from_numpy(rows).cuda()
+        errs = [int_err(two.scan_packed(c, k), one.scan_packed(c, k))
+                for c in (codes, codes[:3])]
+        with ShardTally() as tally:
+            two.scan_packed(codes, k)
+        row = {"k": k, "shape": list(codes.shape), "rows_3_too": True,
+               "equal": not any(errs), "max_abs_err": max(errs),
+               "shard_launches": tally.check(f"sharded_scan k={k}", tally.scan,
+                                             tally.scan_total),
+               "device_ms_one_shard": device_ms(lambda: one.scan_packed(codes, k), 20),
+               "device_ms_two_shards": device_ms(lambda: two.scan_packed(codes, k), 20)}
+        emit(phase="sharded_scan", **row)
+        rows_out.append(row)
+        worst = max(worst, row["max_abs_err"])
+        if not row["equal"]:
+            raise AssertionError(f"the two-shard scan differs from one shard: {row}")
+    return rows_out, worst
+
+
+def sharded_eval_rows() -> tuple[list[dict], int]:
+    """Kernel 4 through a two-shard scanner against the one-shard scanner on
+    phase_scan_eval's rows ([4, 2^18 + k - 1], both filters) and their
+    first 3 rows: each shard's nine outputs equal the one-shard call on
+    that shard's rows (padded with 'A'), and where no call finds more
+    heads than s_max the shards' merge (scanpipe.merge_shards) equals the
+    one-shard call on all the rows."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import scan_conv as sc
+    from goldpolish_tpu_torch.polish import scanpipe
+
+    rows_out, worst = [], 0
+    for k, ecfg, tables, inputs in eval_inputs(np.random.default_rng(SEED + 1)):
+        nw_row = EVAL_ROW
+        for label, words, rows in inputs:
+            u32 = words.cpu().numpy().view(np.uint32)
+            one = sc.DeviceScanner.from_words(u32, FILTER_BITS, 4, "cuda:0")
+            two = sc.DeviceScanner.from_words(u32, FILTER_BITS, 4, devices=SHARDS)
+            for scanner in (one, two):
+                scanner.enable_eval(ecfg, tables)
+            codes = torch.from_numpy(rows).cuda()
+            errs, merged, n_sites = [], None, None
+            for c in (codes, codes[:3]):
+                got = two.scan_eval_packed(c, k)
+                n_sites = n_sites or [int(x) for x in got[1]]
+                padded = torch.cat([c, c.new_full((4 - c.shape[0], c.shape[1]),
+                                                  ord("A"))])
+                shards = []
+                for s in range(2):
+                    want = one.scan_eval_packed(padded[2 * s : 2 * s + 2], k)
+                    errs.append(int_err(got[0][2 * s : 2 * s + 2], want[0]))
+                    errs += [int_err(got[i][s], want[i]) for i in range(1, 9)]
+                    shards.append(tuple(t.cpu().numpy() for t in want))
+                if c.shape[0] == 4:
+                    whole = [t.cpu().numpy() for t in one.scan_eval_packed(c, k)]
+                    n = int(whole[1])
+                    if n <= ecfg.s_max:
+                        merged = scanpipe.merge_shards(shards, nw_row)
+                        errs.append(int_err(merged[0], whole[0]))
+                        errs += [int_err(m, w[:n]) for m, w in zip(merged[2:], whole[2:])]
+            with ShardTally() as tally:
+                two.scan_eval_packed(codes, k)
+            row = {"k": k, "filter": label, "shape": list(codes.shape),
+                   "rows_3_too": True, "merge_checked": merged is not None,
+                   "shard_n_sites": n_sites, "s_max": ecfg.s_max,
+                   "equal": not any(errs), "max_abs_err": max(errs),
+                   "shard_launches": tally.check(f"sharded_eval k={k} {label}",
+                                                 tally.eval, tally.eval_total),
+                   "device_ms_one_shard": device_ms(
+                       lambda: one.scan_eval_packed(codes, k), 20),
+                   "device_ms_two_shards": device_ms(
+                       lambda: two.scan_eval_packed(codes, k), 20)}
+            emit(phase="sharded_eval", **row)
+            rows_out.append(row)
+            worst = max(worst, row["max_abs_err"])
+            if not row["equal"]:
+                raise AssertionError(f"the two-shard eval differs from one shard: {row}")
+            if label == "truth" and not row["merge_checked"]:
+                raise AssertionError(f"the truth rows overflowed s_max at k={k}")
+    return rows_out, worst
+
+
+def sharded_polish(inp: dict) -> dict:
+    """The hybrid engine with two shards on one full batch of the main
+    input (its first contig) with the batch's own filters, k = 32, 28, 24,
+    20 (polish/multik.polish_multik with the engines given), the device
+    scan pinned and the eval armed: bytes equal to the one-shard engines',
+    kernel 4 launched on both shards, no plain version run."""
+    from goldpolish_tpu_torch import cli
+    from goldpolish_tpu_torch.pipeline import bulk
+    from goldpolish_tpu_torch.polish import multik
+    from goldpolish_tpu_torch.polish.ntedit_gpu import NtEditGPU
+
+    cfg = cli.args_to_config(cli.build_parser().parse_args(cli_argv(inp, "sharded")))
+    builder = bulk.make_builder(cfg, inp["work"])
+    name, seq = read_fasta(inp["draft"])[0]
+    batch_bfs = builder.build_batch([name])
+
+    def polish(devices):
+        engines = {k: NtEditGPU(multik.ntedit_config_for_k(
+            k, hash_num=batch_bfs.bf_for_k(k).hash_num), batch_bfs.bf_for_k(k),
+            backend="hybrid", device="cuda", devices=devices) for k in K_VALUES}
+        t = time.monotonic()
+        out, stats = multik.polish_multik([(name, seq)], batch_bfs, K_VALUES,
+                                          backend="hybrid", engines=engines)
+        return out, time.monotonic() - t, engines[K_VALUES[0]]._scanner
+
+    counters = main_counters()
+    with env_set({**FORCE, "GPTPU_DEVICE_EVAL": None}):
+        one, one_s, _ = polish(None)
+        for c in counters.values():
+            c.reset()
+        with ShardTally() as tally:
+            two, two_s, scanner = polish(SHARDS)
+        counts = {key: c.value for key, c in counters.items()}
+    line = {"contig": name, "bp": len(seq), "k": K_VALUES, "shards": list(SHARDS),
+            "equal": one == two, "one_shard_s": one_s, "two_shards_s": two_s,
+            "eval_shards": scanner.eval_shards,
+            "shard_eval_launches": [tally.eval.get(s, 0) for s in range(2)],
+            "scan_eval_launches": counts["scan_eval_launches"],
+            "tally_eval_launches": tally.eval_total,
+            "plain_calls": sum(v for key, v in counts.items() if key.startswith("plain"))}
+    emit(phase="sharded_polish", **line)
+    if not line["equal"] or line["plain_calls"] or min(line["shard_eval_launches"]) <= 0:
+        raise AssertionError(f"sharded_polish: {line}")
+    if not (sum(line["shard_eval_launches"]) == line["tally_eval_launches"]
+            == line["scan_eval_launches"]):
+        raise AssertionError(f"sharded_polish: launches unaccounted for: {line}")
+    return line
+
+
+def sharded_mesh() -> tuple[dict, int]:
+    """parallel/mesh.sharded_scan_step on a 2 x 2 grid on the one card,
+    k = 32, on the truth rows [4, 2^19 + 31] cut into two haloed halves:
+    each cell's presence equal to the one-shard kernel 2 on the whole rows,
+    the stats equal to the cells' counts."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import scan_conv as sc
+    from goldpolish_tpu_torch.parallel import mesh
+
+    k, words, rows = next(truth_scan_inputs(1 << 19, ks=[32]))
+    grid = mesh.make_mesh(4, devices=("cuda:0",) * 4)
+    windows = mesh.haloed_windows(rows, grid.shape["sp"], k)
+    step = mesh.sharded_scan_step(grid, k, 4, FILTER_BITS)
+    args = (mesh.replicate(grid, words), mesh.shard_windows(grid, windows))
+    present, stats = step(*args)
+    nw = rows.shape[1] - k + 1
+    packed = sc.scan_present_packed(torch.from_numpy(words).cuda(), FILTER_BITS, 4, k,
+                                    torch.from_numpy(rows).cuda())
+    want = np.unpackbits(packed.cpu().numpy(), axis=1, bitorder="little")[:, :nw]
+    flat = present.reshape(rows.shape[0], -1).cpu().numpy()
+    err = max(int_err(flat[:, :nw], want),
+              int_err(stats, [[flat.size, int((~flat).sum())]]))
+    line = {"grid": list(grid.devices.shape), "k": k, "windows": list(windows.shape),
+            "equal": not err, "max_abs_err": err,
+            "stats": stats.cpu().tolist(), "ms": time_ms(lambda: step(*args), 10)}
+    emit(phase="sharded_mesh", **line)
+    if err:
+        raise AssertionError(f"sharded_scan_step differs from kernel 2: {line}")
+    return line, err
+
+
+def phase_sharded(inp: dict) -> dict:
+    """K9 within one process: the scanner and its fused eval over two
+    shards on the one card, the engine over them, and the mesh step."""
+    t = time.monotonic()
+    scans, scan_err = sharded_scan_rows()
+    evals, eval_err = sharded_eval_rows()
+    polish = sharded_polish(inp)
+    grid, mesh_err = sharded_mesh()
+    line = {"scan_max_abs_err": max(scan_err, mesh_err), "eval_max_abs_err": eval_err,
+            "polish_equal": polish["equal"], "mesh_equal": grid["equal"],
+            "seconds": time.monotonic() - t}
+    emit(phase="sharded", **line)
+    return line
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 (the ranks' rendezvous)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(argv: list[str], env: dict, n: int = 2, timeout: float = 300) -> list[dict]:
+    """`python -m goldpolish_tpu_torch.cli argv` as n ranks joined at
+    127.0.0.1 (each with its own workspace); every rank is killed if one
+    fails or the time runs out.  Returns each rank's exit code, seconds
+    and standard error."""
+    port = free_port()
+    procs = []
+    try:
+        for rank in range(n):
+            rank_argv = list(argv)
+            ws = rank_argv.index("-m") + 1
+            rank_argv[ws] = f"{rank_argv[ws]}_rank{rank}"
+            rank_env = {**os.environ, "PYTHONPATH": ROOT,
+                        "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                        "JAX_NUM_PROCESSES": str(n), "JAX_PROCESS_ID": str(rank)}
+            for key, v in env.items():
+                rank_env.pop(key, None)
+                if v is not None:
+                    rank_env[key] = v
+            procs.append((time.monotonic(), subprocess.Popen(
+                [sys.executable, "-m", "goldpolish_tpu_torch.cli", *rank_argv],
+                cwd=ROOT, env=rank_env, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE, text=True)))
+        deadline = time.monotonic() + timeout
+        results = [None] * n
+        # stderr is read by a thread per rank, so no pipe fills up
+        errs = [[] for _ in range(n)]
+        readers = [threading.Thread(target=lambda p=p, e=e: e.append(p.stderr.read()))
+                   for (_t, p), e in zip(procs, errs)]
+        for r in readers:
+            r.start()
+        while None in results:
+            for rank, (t0, p) in enumerate(procs):
+                if results[rank] is None and p.poll() is not None:
+                    results[rank] = {"rc": p.returncode, "seconds": time.monotonic() - t0}
+            if any(r and r["rc"] for r in results) or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+    finally:
+        for _t, p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r in readers:
+        r.join(60)
+    return [{**(res or {"rc": "killed", "seconds": None}), "stderr": "".join(e)}
+            for res, e in zip(results, errs)]
+
+
+def rank_report(stderr: str) -> dict:
+    """What a rank's log says: its batches, run_bulk's wall and the
+    kernel launches of its process."""
+    import re
+
+    batches = re.search(r"polishes batches \[([0-9, ]*)\]", stderr)
+    wall = re.search(r"timing: wall ([0-9.]+)s", stderr)
+    launches = re.search(r"kernel launches \(this process\): (\{.*\})", stderr)
+    return {"batches": [int(b) for b in batches.group(1).split(",")] if batches else None,
+            "wall_s": float(wall.group(1)) if wall else None,
+            "kernel_launches": json.loads(launches.group(1)) if launches else None}
+
+
+def phase_multihost(inp: dict, arms: dict) -> dict:
+    """K9 across processes: the CLI as two ranks on the one card, joined
+    over gloo at 127.0.0.1 (the JAX package's three variables), on the
+    main input with -b 1 (4 batches, 2 a rank), in the default arm and the
+    jax arm; each merged output equal, byte for byte, to the main phase's
+    one-process output of that arm, and each rank launching the arm's
+    kernels (kernel 4; kernels 6 and 7)."""
+    line = {}
+    for name, env, extra, need in (
+            ("default", {**FORCE, "GPTPU_DEVICE_EVAL": None}, (), ("scan_eval",)),
+            ("jax", {}, ("--backend", "jax"), ("site_eval", "dbg_extend"))):
+        argv = cli_argv(inp, f"multihost_{name}", *extra)
+        t = time.monotonic()
+        ranks = run_ranks(argv, env)
+        wall = time.monotonic() - t
+        reports = [{"rc": r["rc"], "process_s": r["seconds"], **rank_report(r["stderr"])}
+                   for r in ranks]
+        ok = all(r["rc"] == 0 for r in ranks)
+        merged = open(argv[2], "rb").read() if ok else b""
+        line[name] = {"wall_s": wall, "equals_one_process": merged == arms[name]["bytes"],
+                      "ranks": reports}
+        emit(phase=f"multihost_{name}", **line[name])
+        if not ok:
+            raise AssertionError(f"multihost {name}: a rank failed:\n"
+                                 + "\n".join(r["stderr"][-3000:] for r in ranks))
+        if not line[name]["equals_one_process"]:
+            raise AssertionError(f"multihost {name}: the merged output differs from "
+                                 "the one-process run")
+        for rank, rep in enumerate(reports):
+            counts = rep["kernel_launches"] or {}
+            if rep["batches"] != [rank, rank + 2] or min(
+                    counts.get(key, 0) for key in need) <= 0:
+                raise AssertionError(f"multihost {name}: rank {rank}: {rep}")
+    return line
+
+
 def phase_main(rng):
     from goldpolish_tpu_torch.ops import bloom_sort as bs
 
@@ -1507,7 +1928,9 @@ def phase_main(rng):
         # each with its counts set to 0 just before its arms and read after
         paths = {"main_k72": phase_main_k72(inp),
                  "main_internal_map": phase_internal_map(inp),
-                 "targeted": phase_targeted(inp), "tools": phase_tools(inp)}
+                 "targeted": phase_targeted(inp), "tools": phase_tools(inp),
+                 "sharded": phase_sharded(inp),
+                 "multihost": phase_multihost(inp, {"default": on, "jax": jax})}
         return launches, truths, fills, ext_main, paths
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2009,7 +2432,8 @@ def main() -> int:
             "source": "goldpolish_tpu_torch/csrc/scan_eval.cu",
             "replaces": "goldpolish_tpu/ops/scan_eval.py:235",
             "launches": launches["scan_eval"],
-            "max_abs_err": max(r["max_abs_err"] for r in evals),
+            "max_abs_err": max(paths["sharded"]["eval_max_abs_err"],
+                               *(r["max_abs_err"] for r in evals)),
             "ms": evals[0]["ms"], "plain_ms": evals[0]["plain_ms"],
             **{key: evals[0][key] for key in keys}, "library_ms": None,
         },
@@ -2018,7 +2442,8 @@ def main() -> int:
             "source": "goldpolish_tpu_torch/csrc/scan_conv.cu",
             "replaces": "goldpolish_tpu/ops/scan_conv.py:228",
             "launches": launches["scan_present_packed"],
-            "max_abs_err": max(r["max_abs_err"] for r in scans),
+            "max_abs_err": max(paths["sharded"]["scan_max_abs_err"],
+                               *(r["max_abs_err"] for r in scans)),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             **{key: first[key] for key in keys}, "library_ms": None,
         },

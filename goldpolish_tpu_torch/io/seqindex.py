@@ -18,6 +18,7 @@ Port counterpart: goldpolish_tpu/io/seqindex.py, copied with only the imports re
 from __future__ import annotations
 
 import os
+import socket
 from typing import Iterator
 
 
@@ -90,9 +91,18 @@ class SeqIndex:
 
     # -- TSV persistence (reference: seqindex.cpp:68-125) ---------------------
     def save(self, filepath: str) -> None:
-        with open(filepath, "w") as f:
-            for rid, (start, length, phred) in self._records.items():
-                f.write(f"{rid}\t{start}\t{length}\t{phred:g}\n")
+        # a temporary of this host and process, then a rename: the hosts of
+        # a multi-host run index the same input at once, and none may read
+        # a half-written index
+        tmp = f"{filepath}.{socket.gethostname()}.{os.getpid()}.tmp"
+        try:
+            with open(tmp, "w") as f:
+                for rid, (start, length, phred) in self._records.items():
+                    f.write(f"{rid}\t{start}\t{length}\t{phred:g}\n")
+            os.replace(tmp, filepath)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
 
     @classmethod
     def load(cls, index_filepath: str, seqs_filepath: str) -> "SeqIndex":

@@ -30,13 +30,18 @@ version on int64 lanes (ops/u64.py), for CPU tensors.
 
 `DeviceScanner.enable_eval` arms the fused phase-A eval of ops/scan_eval.py
 (K2, the JAX scanner's `enable_eval` :378-458); `scan_eval_packed` then runs
-it.  Left out of this port, each listed in ROADMAP.md: the mesh sharding
-(:333-375, and the eval's shard_map :399-423, so `eval_shards` is always 1;
-K9) and the 2-bit packed transfer (`scan_packed2` :498-527).
+it.  The scanner shards its rows over devices as the JAX scanner's mesh
+does (K9: `_sharded_scan` :333-375 and the eval's shard_map :399-423): the
+filter is replicated and each shard runs kernel 2 or kernel 4 on its own
+rows.  Its shards are the GPUs of this process, never those of other hosts
+(the JAX scanner's mesh spans `jax.devices()`, every host's in a
+multi-process run).  Left out (ROADMAP.md): the 2-bit packed transfer
+(`scan_packed2` :498-527).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -194,89 +199,190 @@ def scan_present_packed(words: torch.Tensor, bits: int, h: int, k: int,
 scan_present_packed.launches = LaunchCounter()
 
 
+def shard_devices(device: str, devices=None) -> list[torch.device]:
+    """The devices a scanner shards over: `devices` as given (repeats
+    allowed: two shards may share one card); else every GPU this process
+    sees for "cuda"; else the one device `device` names.  A CUDA device
+    without CUDA raises (never a CPU fallback)."""
+    names = list(devices) if devices is not None else [device]
+    if not names:
+        raise ValueError("a scanner needs at least one device")
+    out = [torch.device(d) for d in names]
+    if any(d.type not in ("cuda", "cpu") for d in out):
+        raise ValueError(f"unsupported scanner devices {names!r}")
+    if any(d.type == "cuda" for d in out) and not torch.cuda.is_available():
+        raise RuntimeError(f"DeviceScanner(devices={names!r}): CUDA is not available")
+    if devices is None and out[0] == torch.device("cuda"):
+        out = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return out
+
+
+def on_device(dev: torch.device):
+    """Make `dev` the current CUDA device (kernels launch on the current
+    device's streams); nothing for the CPU."""
+    return torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext()
+
+
 class DeviceScanner:
     """Holds a Bloom filter's device residency and runs fused scans.
 
     One direct-load probe serves every filter size, so unlike the JAX
     scanner (probe_kind, scan_conv.py:263-271) there is no probe choice.
 
-    The filter is uploaded once, as int32 words, to `device`.  "cuda" with
-    no CUDA device raises (never a CPU fallback); "cpu" runs the plain
-    torch versions and is what the CPU tests use."""
+    The filter is uploaded once, as int32 words, to each shard's device
+    (shard_devices: "cuda" shards over every GPU of this process, "cuda:N"
+    and "cpu" are one shard, `devices` lists them).  A call's rows are
+    padded to a multiple of the shard count and split in order: shard s
+    takes rows [s * R/n, (s + 1) * R/n).  As in the JAX scanner, the
+    packing of the scan pipe (polish/scanpipe.py) already carries the k-1
+    halos, so shards need no exchange.  "cuda" with no CUDA device raises
+    (never a CPU fallback); "cpu" runs the plain torch versions and is what
+    the CPU tests use."""
 
-    def __init__(self, bf, device: str):
+    def __init__(self, bf, device: str = "cuda", devices=None):
         self._init(np.asarray(bf.words_u32()), int(bf.bits), int(bf.hash_num),
-                   device)
+                   device, devices)
 
     @classmethod
     def from_words(cls, words_u32: np.ndarray, bits: int, h: int,
-                   device: str) -> "DeviceScanner":
+                   device: str = "cuda", devices=None) -> "DeviceScanner":
         """Scanner over a filter's little-endian u32 words (e.g. the JAX
         package's BloomFilter.words_u32())."""
         self = cls.__new__(cls)
-        self._init(np.asarray(words_u32), int(bits), int(h), device)
+        self._init(np.asarray(words_u32), int(bits), int(h), device, devices)
         return self
 
-    def _init(self, words_u32: np.ndarray, bits: int, h: int, device: str):
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"DeviceScanner(device={device!r}): CUDA is not available"
-            )
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported scanner device {device!r}")
+    def _init(self, words_u32: np.ndarray, bits: int, h: int, device: str,
+              devices):
+        self.devices = shard_devices(device, devices)
+        self.device = self.devices[0]
         self.bits = bits
         self.h = h
-        words = np.ascontiguousarray(words_u32, dtype="<u4").view(np.int32)
-        self._words = torch.from_numpy(words.copy()).to(self.device)
+        words = torch.from_numpy(
+            np.ascontiguousarray(words_u32, dtype="<u4").view(np.int32).copy())
+        # the filter replicated: one copy per distinct device
+        copies = {d: words.to(d) for d in dict.fromkeys(self.devices)}
+        self._shard_words = [copies[d] for d in self.devices]
+        self._evals = None
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.devices)
 
     # -- fused phase-A (scan + hot-site detect + candidate eval) ------------
     def enable_eval(self, eval_cfg, site_tables, force: bool = False) -> None:
-        """Arm the fused scan+eval (ops/scan_eval.FusedEval) on the
-        scanner's device.  `force` is the JAX scanner's argument, kept for
-        its callers; it changes nothing, as there (one probe, no mesh)."""
+        """Arm the fused scan+eval (ops/scan_eval.FusedEval) on every
+        shard's device.  `force` is the JAX scanner's argument, kept for
+        its callers; it changes nothing, as there."""
         from . import scan_eval
 
-        self._eval = scan_eval.FusedEval(eval_cfg, self.bits, site_tables,
-                                         self.device)
+        evals = {d: scan_eval.FusedEval(eval_cfg, self.bits, site_tables, d)
+                 for d in dict.fromkeys(self.devices)}
+        self._evals = [evals[d] for d in self.devices]
 
     @property
     def eval_enabled(self) -> bool:
-        return getattr(self, "_eval", None) is not None
+        return self._evals is not None
 
     @property
     def eval_shards(self) -> int:
-        """Shard count of scan_eval_packed outputs: always 1 (the JAX
-        scanner's mesh, K9, is not ported)."""
-        return 1
-
-    def scan_eval_packed(self, codes, k: int):
-        """Fused scan+eval call: codes uint8 [R, L] (numpy or tensor) ->
-        the nine outputs of ops/scan_eval.FusedEval, as tensors on the
-        scanner's device.  On CUDA the kernels run asynchronously on the
-        current stream."""
-        if k != self._eval.cfg.k:
-            raise ValueError(f"eval armed for k={self._eval.cfg.k}, called with k={k}")
-        return self._eval(self._words, self._as_rows(codes))
+        """Shard count of scan_eval_packed outputs (1 = unsharded).  When
+        >1, the site-ish outputs stack per shard, as the JAX scanner's:
+        site int32 [n, S] with SHARD-ROW-LOCAL indices, n_sites int32 [n],
+        and the consumer maps shard s, local row r to global row
+        s * rows_per_shard + r."""
+        return self.n_shards if self.eval_enabled else 1
 
     @property
     def preferred_rows(self) -> int:
-        """Scan-call row count the pipeline should use."""
-        return 4
+        """Scan-call row count the pipeline should use (>= 1 per shard)."""
+        return max(4, self.n_shards)
+
+    def scan_shard(self, s: int, codes: torch.Tensor, k: int) -> torch.Tensor:
+        """Kernel 2 on shard s's rows `codes` (uint8 [r, L] on its device),
+        asynchronously on the current stream of that device."""
+        return scan_present_packed(self._shard_words[s], self.bits, self.h, k, codes)
+
+    def eval_shard(self, s: int, codes: torch.Tensor, k: int):
+        """The fused eval (kernel 4) on shard s's rows, as scan_shard."""
+        if self._evals is None:
+            raise RuntimeError("the fused eval is not armed (enable_eval)")
+        fused = self._evals[s]
+        if k != fused.cfg.k:
+            raise ValueError(f"eval armed for k={fused.cfg.k}, called with k={k}")
+        return fused(self._shard_words[s], codes)
 
     def _as_rows(self, codes) -> torch.Tensor:
         if isinstance(codes, np.ndarray):
             codes = torch.from_numpy(np.ascontiguousarray(codes, np.uint8))
         if codes.dim() == 1:
             codes = codes[None, :]
-        return codes.to(self.device)
+        return codes
+
+    # -- the split of a call's rows over the shards (the scan pipe's too) ---
+    def padded_rows(self, rows: int) -> int:
+        """A call of `rows` rows padded to a multiple of the shard count."""
+        return -(-rows // self.n_shards) * self.n_shards
+
+    @staticmethod
+    def pad_byte(fused: bool) -> int:
+        """The byte of the pad rows: 'A' for the fused eval (pad windows
+        probe like real sequence and any heads they produce fall outside
+        every segment, as the JAX scanner's :449-460), 0 for the plain scan
+        (:475-485)."""
+        return ord("A") if fused else 0
+
+    def split_rows(self, codes):
+        """A padded call's rows (tensor [padded_rows, L]) as the shards'
+        parts, in order: shard s takes rows [s * R/n, (s + 1) * R/n)."""
+        return codes.chunk(self.n_shards)
+
+    def _run_shards(self, codes, k: int, fused: bool) -> tuple[int, list]:
+        """(rows, each shard's outputs): the rows padded to a multiple of
+        the shard count, kernel 4 (`fused`) or kernel 2 on each shard's
+        part with its device current."""
+        codes = self._as_rows(codes)
+        b = codes.shape[0]
+        total = self.padded_rows(b)
+        if total > b:
+            codes = torch.cat([codes, codes.new_full((total - b, codes.shape[1]),
+                                                     self.pad_byte(fused))])
+        launch = self.eval_shard if fused else self.scan_shard
+        outs = []
+        for s, (dev, rows) in enumerate(zip(self.devices, self.split_rows(codes))):
+            with on_device(dev):
+                outs.append(launch(s, rows.to(dev), k))
+        return b, outs
+
+    def scan_eval_packed(self, codes, k: int):
+        """Fused scan+eval call: codes uint8 [R, L] (numpy or tensor) ->
+        the nine outputs of ops/scan_eval.FusedEval, as tensors on the
+        scanner's first device; with several shards, packed holds every
+        padded row in order and the other eight stack on a leading shard
+        axis (see eval_shards).  On CUDA the kernels run asynchronously on
+        the current stream of each device."""
+        _b, outs = self._run_shards(codes, k, fused=True)
+        if self.n_shards == 1:
+            return outs[0]
+        from .scan_eval import EvalOutputs
+
+        dev = self.device
+        merged = EvalOutputs((
+            torch.cat([o[0].to(dev) for o in outs]),
+            *(torch.stack([o[i].to(dev) for o in outs]) for i in range(1, 9)),
+        ))
+        merged.scratch = outs  # each shard's scratch, alive with the outputs
+        return merged
 
     def scan_packed(self, codes, k: int) -> torch.Tensor:
         """codes uint8 [B, L] or [L] (numpy or tensor) -> packed presence
-        uint8 [B, ceil(nw/8)] on the scanner's device.  On CUDA the kernel
-        runs asynchronously on the current stream."""
-        return scan_present_packed(self._words, self.bits, self.h, k,
-                                   self._as_rows(codes))
+        uint8 [B, ceil(nw/8)] on the scanner's first device, the rows in
+        order.  On CUDA the kernel runs asynchronously on the current
+        stream of each device."""
+        b, outs = self._run_shards(codes, k, fused=False)
+        if self.n_shards == 1:
+            return outs[0]
+        return torch.cat([o.to(self.device) for o in outs])[:b]
 
     @staticmethod
     def unpack_present(packed: np.ndarray, nw: int) -> np.ndarray:

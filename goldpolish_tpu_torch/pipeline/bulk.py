@@ -15,8 +15,10 @@ chain executes with the TPU two-phase editor and the Konnector gap filler.
 Batches run concurrently under an asyncio pool with a strictly ordered
 writer and a checkpoint manifest (pipeline.engine).
 
-Port counterpart: goldpolish_tpu/pipeline/bulk.py, copied with one cut,
-raising at startup until ported (ROADMAP.md queue 1): multi-host runs.
+Port counterpart: goldpolish_tpu/pipeline/bulk.py, copied.  Multi-host
+runs (parallel/distributed.py: one process per host, joined over
+torch.distributed) publish per-batch files that host 0's reaper merges,
+as in the JAX package; each host runs its arm on its own devices.
 device_bf_build (jax backend) fills every batch with kernel 5 on the
 config's device; the overlapped fill (--fill-overlap on the hybrid or jax
 backend, without device_bf_build) claims batches from the tail.  Repairs
@@ -34,7 +36,10 @@ DBG (kernel 7 probes each BFS level on the config's device).
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import json
 import os
+import socket
 from dataclasses import dataclass
 
 from ..bf_builder import BFBuilder
@@ -42,6 +47,7 @@ from ..config import PipelineConfig
 from ..fill import sealer as sealer_mod
 from ..io import fasta, seqindex
 from ..mappings import AllMappings
+from ..parallel import distributed as dist
 from ..polish import mask as mask_mod
 from ..polish import multik
 from ..utils.log import get_logger
@@ -82,6 +88,23 @@ def build_indexes(cfg: PipelineConfig, workspace: str):
     return index_for(cfg.seqs_to_polish), index_for(cfg.polishing_seqs)
 
 
+@contextlib.contextmanager
+def _published(path: str):
+    """Yield a temporary path for `path`'s contents, renamed onto `path`
+    when the block succeeds.  The temporary sits next to the destination
+    (the workspace is usually /dev/shm while mapping artifacts land in the
+    CWD, and rename(2) across filesystems raises EXDEV) and is this host's
+    and process's own: the hosts of a multi-host run map the same input
+    into the same CWD at once, and none may read a half-written file."""
+    tmp = f"{path}.{socket.gethostname()}.{os.getpid()}.tmp"
+    try:
+        yield tmp
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def resolve_mappings(cfg: PipelineConfig, target_index,
                      workdir: str = ".") -> AllMappings:
     """Load provided mappings or produce them.
@@ -117,7 +140,7 @@ def resolve_mappings(cfg: PipelineConfig, target_index,
             f"{os.path.basename(cfg.polishing_seqs)}.paf"
         )
         if not fresh(path):
-            with open(path, "w") as out:
+            with _published(path) as tmp, open(tmp, "w") as out:
                 subprocess.run(
                     ["minimap2", f"-t{cfg.threads}", cfg.seqs_to_polish,
                      cfg.polishing_seqs],
@@ -148,14 +171,10 @@ def resolve_mappings(cfg: PipelineConfig, target_index,
             f".{os.path.basename(cfg.polishing_seqs)}.internal.mapping.tsv"
         )
         if not fresh(path):
-            # tmp next to the destination: the workspace is usually /dev/shm
-            # while the artifact lands in the CWD, and rename(2) across
-            # filesystems raises EXDEV
-            tmp = path + ".tmp"
-            internal_mapper.write_mapping_tsv(
-                cfg.seqs_to_polish, cfg.polishing_seqs, tmp
-            )
-            os.replace(tmp, path)
+            with _published(path) as tmp:
+                internal_mapper.write_mapping_tsv(
+                    cfg.seqs_to_polish, cfg.polishing_seqs, tmp
+                )
     return AllMappings.load(
         path, target_index,
         mx_max_mapped_seqs_per_target_10kbp=cfg.mx_max_reads_per_10kbp,
@@ -269,6 +288,19 @@ def make_builder(cfg: PipelineConfig, workdir: str) -> BFBuilder:
     )
 
 
+def kernel_launches() -> dict:
+    """This process's launches of each CUDA kernel a bulk arm reaches (the
+    wrappers' counts: 0 on the CPU, where the plain versions run)."""
+    from ..ops import bloom_sort, dbg_extend, scan_conv, scan_eval, siteeval_device
+
+    return {"scan_present_packed": scan_conv.scan_present_packed.launches.value,
+            "scan_eval": scan_eval.scan_eval.launches.value,
+            "site_eval": siteeval_device.site_eval.launches.value,
+            # kernel 7 at any D (dbg_extend4 and dbg_extend_chain share it)
+            "dbg_extend": dbg_extend.dbg_extend4.launches.value,
+            **{f"fill_{op.__name__}": op.launches.value for op in bloom_sort.KERNEL_OPS}}
+
+
 def check_ported(cfg: PipelineConfig) -> None:
     """Refuse, at startup, a configuration this port cannot run: not at all
     (device_bf_build off the jax backend, which the JAX package ignores
@@ -285,6 +317,13 @@ def check_ported(cfg: PipelineConfig) -> None:
         raise ValueError(
             "--process-pool requires --backend numpy (forked workers cannot "
             "share a CUDA context)"
+        )
+    if cfg.target and dist.configured_hosts() > 1:
+        # every host would extract, polish into and delete the same gap
+        # files next to the output, and write the output itself
+        raise ValueError(
+            "--target runs on one host; start it without a multi-host "
+            "coordinator (JAX_COORDINATOR_ADDRESS)"
         )
     if cfg.backend != "numpy" and cfg.device.startswith("cuda"):
         import torch
@@ -319,6 +358,7 @@ def run_bulk(cfg: PipelineConfig) -> dict:
             "the larger k"
         )
     t_start = _time.monotonic()
+    n_hosts = 1
     ws = engine.Workspace(
         prefix=f"goldpolish-tpu-{os.getpid()}",
         base=cfg.workspace or None,
@@ -343,15 +383,16 @@ def run_bulk(cfg: PipelineConfig) -> dict:
         t_setup = _time.monotonic() - t_start  # index + mapping + builder
         timing_sum: dict = {}
 
-        # one host (multi-host runs raise in init_distributed); the batch
-        # files of parallel.distributed serve the checkpoint replay
-        from ..parallel import distributed as dist
-
+        # the batch files of parallel.distributed carry the multi-host merge
+        # and, on one host, the checkpoint replay
         host_id, n_hosts = dist.init_distributed()
         my_batches = [
             b for b in all_batches
             if dist.host_owns_batch(b.index, host_id, n_hosts)
         ]
+        if n_hosts > 1:
+            log.info("host %d of %d polishes batches %s", host_id, n_hosts,
+                     [b.index for b in my_batches])
 
         loop = asyncio.new_event_loop()
 
@@ -546,7 +587,9 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                 totals["device_filled_batches"] += cfg.device_bf_build
                 return res
 
-        if ckpt_dir:
+        if ckpt_dir and n_hosts == 1:
+            # multi-host publishes per-batch files to the reaper already;
+            # only the single-host path needs the extra replay copies
             inner_worker = worker
 
             async def worker(batch: engine.Batch):  # noqa: F811
@@ -574,29 +617,103 @@ def run_bulk(cfg: PipelineConfig) -> dict:
             totals["resumed_batches"] += 1
             return BatchResult(records=recs, stats={"timing": {}})
 
-        writer = fasta.FastaWriter(cfg.output_seqs)
+        if n_hosts > 1:
+            import threading
 
-        def sink(result: BatchResult):
-            for header, seq in result.records:
-                writer.write((header, seq))
-                totals["contigs"] += 1
-                totals["bases_out"] += len(seq)
-            for key, val in result.stats.get("timing", {}).items():
-                timing_sum[key] = timing_sum.get(key, 0.0) + val
+            def sink_batch(index, result: BatchResult):
+                dist.write_batch_output(cfg.output_seqs, index, result.records)
+                for _h, seq in result.records:
+                    totals["contigs"] += 1
+                    totals["bases_out"] += len(seq)
+                for key, val in result.stats.get("timing", {}).items():
+                    timing_sum[key] = timing_sum.get(key, 0.0) + val
 
-        try:
-            loop.run_until_complete(
-                engine.run_pipeline(
-                    my_batches, worker, sink,
-                    max_concurrent=cfg.max_concurrent_batches,
-                    manifest=manifest,
-                    skip_result=skip_result if ckpt_dir else None,
+            resumable = bool(cfg.checkpoint)
+            reaped = dist.reaped_through(cfg.output_seqs) if resumable else 0
+            reaper_error: list = []
+
+            def reap():
+                try:
+                    dist.reap(cfg.output_seqs, len(all_batches), resumable=resumable)
+                except Exception as e:  # noqa: BLE001 — raised after the join
+                    reaper_error.append(e)
+
+            reaper = None
+            if host_id == 0:
+                # a daemon: a run that fails before its join does not wait
+                # out the reaper's timeout at exit
+                reaper = threading.Thread(target=reap, name="reaper", daemon=True)
+                reaper.start()
+
+            async def run_all():
+                sem = asyncio.Semaphore(cfg.max_concurrent_batches)
+
+                async def one(b):
+                    async with sem:
+                        # resume: a batch whose output already reached the
+                        # final FASTA (reaper progress), or one recorded done
+                        # whose output still sits published for the reaper,
+                        # needs no re-polish (the JAX package also asks the
+                        # manifest about a reaped batch, and re-polishes one
+                        # its host had not yet recorded into a file no
+                        # reaper reads)
+                        published = dist.batch_path(cfg.output_seqs, b.index)
+                        if b.index < reaped or (
+                            manifest and b.index in manifest.done
+                            and os.path.exists(published)
+                        ):
+                            totals["resumed_batches"] += 1
+                            # account the skipped batch in totals so resumed
+                            # runs don't under-report; the published file
+                            # carries exact counts, a reaped batch falls back
+                            # to the input-record count (1 record in == 1 out)
+                            if os.path.exists(published):
+                                for r in fasta.read_seqs(published):
+                                    totals["contigs"] += 1
+                                    totals["bases_out"] += len(r.seq)
+                            else:
+                                totals["contigs"] += len(b.records)
+                            return
+                        res = await worker(b)
+                        sink_batch(b.index, res)
+                        if manifest:
+                            manifest.mark(b.index)
+
+                await asyncio.gather(*[one(b) for b in my_batches])
+
+            try:
+                loop.run_until_complete(run_all())
+                if reaper is not None:
+                    reaper.join()
+                    if reaper_error:
+                        raise reaper_error[0]
+            finally:
+                manifest.close()
+                loop.close()
+        else:
+            writer = fasta.FastaWriter(cfg.output_seqs)
+
+            def sink(result: BatchResult):
+                for header, seq in result.records:
+                    writer.write((header, seq))
+                    totals["contigs"] += 1
+                    totals["bases_out"] += len(seq)
+                for key, val in result.stats.get("timing", {}).items():
+                    timing_sum[key] = timing_sum.get(key, 0.0) + val
+
+            try:
+                loop.run_until_complete(
+                    engine.run_pipeline(
+                        my_batches, worker, sink,
+                        max_concurrent=cfg.max_concurrent_batches,
+                        manifest=manifest,
+                        skip_result=skip_result if ckpt_dir else None,
+                    )
                 )
-            )
-        finally:
-            writer.close()
-            manifest.close()
-            loop.close()
+            finally:
+                writer.close()
+                manifest.close()
+                loop.close()
         if executor is not None:
             executor.shutdown()
         if fill_exec is not None:
@@ -618,16 +735,21 @@ def run_bulk(cfg: PipelineConfig) -> dict:
         wall = _time.monotonic() - t_start
         totals["timing"] = {"wall_s": round(wall, 3), "setup_s": round(t_setup, 3),
                             **{k: round(v, 3) for k, v in timing_sum.items()}}
+        totals["kernel_launches"] = kernel_launches()
         log.info(
             "polished %d contigs (%d bases) in %d batches -> %s",
             totals["contigs"], totals["bases_out"], totals["batches"],
             cfg.output_seqs,
         )
         log.info(
-            "timing: wall %.1fs, setup %.1fs; batch-stage sums: %s",
+            "timing: wall %.3fs, setup %.1fs; batch-stage sums: %s",
             wall, t_setup,
             " ".join(f"{k}={v:.1f}s" for k, v in sorted(timing_sum.items())),
         )
+        log.info("kernel launches (this process): %s",
+                 json.dumps(totals["kernel_launches"]))
         return totals
     finally:
+        if n_hosts > 1:
+            dist.shutdown_distributed()
         ws.cleanup()

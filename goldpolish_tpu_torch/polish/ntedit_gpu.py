@@ -351,16 +351,20 @@ class NtEditGPU:
       "hybrid" — device dense scan, host-native candidate evaluation.
     device: where the hybrid and jax device work runs — "cuda" (raises
       without CUDA) or "cpu" (the plain torch versions; the tests use it).
+      The hybrid scanner shards over every GPU of this process for "cuda"
+      (ops/scan_conv.shard_devices); `devices`, a tuple of devices, gives
+      its shards explicitly.
     """
 
     def __init__(self, cfg: Config, bf, backend: str = "numpy",
-                 device: str = "cuda"):
+                 device: str = "cuda", devices=None):
         if backend not in ("numpy", "hybrid", "jax"):
             raise ValueError(f"unknown backend {backend!r}")
         self.cfg = cfg
         self.bf = bf
         self.backend = backend
         self.device = device
+        self.devices = devices
         self.tables = siteeval.make_tables(
             cfg.k, cfg.jump, cfg.max_insertions, cfg.max_deletions,
             snv=bool(cfg.snv),
@@ -396,7 +400,7 @@ class NtEditGPU:
         from ..ops import scan_conv
 
         cfg = self.cfg
-        self._scanner = scan_conv.DeviceScanner(self.bf, self.device)
+        self._scanner = scan_conv.DeviceScanner(self.bf, self.device, self.devices)
         self._scanner_lazy = False
         # fused phase-A (scan + detection + site eval on the device,
         # ops/scan_eval): the walker then replays trials from tables — its

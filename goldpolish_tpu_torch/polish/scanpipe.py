@@ -18,24 +18,28 @@ to a whole-contig scan (window hashes read only their own k bytes; the k-1
 windows spanning a segment boundary are sliced off by the segment map).
 
 Asynchrony on CUDA: JAX hands back un-fetched arrays; in torch a pageable
-copy or `.cpu()` blocks.  So each pipe owns one CUDA stream and DEPTH + 2
-pinned host staging slots (codes in, outputs back) — one per call that can
-be live at once: DEPTH + 1 in flight plus the one being consumed.  A call
-fills its slot's codes, then on the pipe's stream copies them to the
-device (non_blocking), launches the scan, copies its outputs back
-(non_blocking) and records an event; the consumer waits on that event
-only.  Pipes never share a slot, so batches polishing on several threads
-(pipeline/bulk.py) cannot overwrite each other's buffers.
+copy or `.cpu()` blocks.  So each pipe owns one CUDA stream per scanner
+shard and DEPTH + 2 pinned host staging slots (codes in, outputs back) —
+one per call that can be live at once: DEPTH + 1 in flight plus the one
+being consumed — each slot holding the whole call's codes and one set of
+output buffers per shard.  A call fills its slot's codes (its rows padded
+to a multiple of the shard count, as the scanner pads them), then, for
+each shard, on that shard's stream copies the shard's rows to its device
+(non_blocking), launches the scan, copies the outputs back (non_blocking)
+and records an event; the consumer waits on every shard's event of that
+call and on nothing else.  Pipes never share a slot, so batches polishing
+on several threads (pipeline/bulk.py) cannot overwrite each other's
+buffers.
 
 Eval mode (the scanner's fused phase-A eval armed, ops/scan_eval): each
-call runs scan_eval_packed instead of the plain scan, the slot holds one
-pinned buffer per output (nine), all nine copies run on the pipe's stream
-before the call's event, and the generator yields (job_id, present,
+shard runs the fused eval (eval_shard) instead of the plain scan, its
+slot holds one pinned buffer per output (nine), all nine copies run on the
+shard's stream before its event, and the generator yields (job_id, present,
 tables), the tables being the interior sites of the job's segments
 (window-relative, the drop rule of the JAX pipe, scanpipe.py:259-291).
-The JAX pipe's mesh merge (:223-248) has no counterpart: the port's
-scanner has one shard (`eval_shards` is 1).  The 2-bit packed transfer
-(:136-153) is not ported (ROADMAP.md); the raw transfer gives the same bits.
+With several shards, merge_shards joins a call's outputs as the JAX
+pipe's mesh merge does (:223-248).  The 2-bit packed transfer (:136-153)
+is not ported (ROADMAP.md); the raw transfer gives the same bits.
 
 Replaces the reference's one-rolling-probe-per-position inner loop
 (reference: subprojects/ntedit/ntedit.cpp:1414-1486) as the production
@@ -71,19 +75,43 @@ class _Call:
 
 
 class _Pending:
-    """One dispatched call: its host outputs (numpy), ready once `event` is."""
+    """One dispatched call: each shard's host outputs (numpy), ready once
+    every one of `events` is."""
 
-    def __init__(self, outs: tuple, event=None, keep=()):
+    def __init__(self, outs: list[tuple], events=(), keep=()):
         self._outs = outs
-        self._event = event
-        self._keep = keep  # device tensors (and scratch) the stream still uses
+        self._events = events
+        self._keep = keep  # device tensors (and scratch) the streams still use
 
-    def result(self) -> tuple:
-        if self._event is not None:
-            self._event.synchronize()
-            self._event = None
-            self._keep = ()
+    def result(self) -> list[tuple]:
+        for event in self._events:
+            event.synchronize()
+        self._events = ()
+        self._keep = ()
         return self._outs
+
+
+def merge_shards(shard_outs: list[tuple], nw_row: int) -> tuple:
+    """One call's outputs from its shards' (the JAX pipe's mesh merge,
+    scanpipe.py:223-248): the packed rows in order and, in eval mode, the
+    tables of each shard's valid sites (an ascending prefix of its `site`),
+    concatenated, each site index moved from its shard's rows to the
+    call's (shard s's row r is the call's row s * rows_per_shard + r)."""
+    if len(shard_outs) == 1:
+        return shard_outs[0]
+    packed = np.concatenate([o[0] for o in shard_outs])
+    if len(shard_outs[0]) == 1:
+        return (packed,)
+    rows_per = shard_outs[0][0].shape[0]
+    cols: list[list] = [[] for _ in range(7)]
+    for sh, o in enumerate(shard_outs):
+        site = o[2]
+        valid = site[site >= 0]
+        cols[0].append(valid + sh * rows_per * nw_row)
+        for col, table in zip(cols[1:], o[3:]):
+            col.append(table[: len(valid)])
+    n_sites = sum(int(o[1]) for o in shard_outs)
+    return (packed, n_sites, *(np.concatenate(c) for c in cols))
 
 
 class ScanPipe:
@@ -105,13 +133,19 @@ class ScanPipe:
         self.rows = int(rows)
         self.depth = max(1, int(depth))
         self.row_bytes = self.row_windows + k - 1
-        self.device = scanner.device
         self.eval_mode = getattr(scanner, "eval_enabled", False)
-        self._cuda = self.device.type == "cuda"
-        self._stream = torch.cuda.Stream(self.device) if self._cuda else None
-        # per slot: pinned codes, then pinned outputs (allocated at first use)
+        # rows of a call are padded to a multiple of the shard count, and
+        # split over the shards, as the scanner does it
+        self.n_shards = scanner.n_shards
+        self.max_rows = scanner.padded_rows(self.rows)
+        self._pad = scanner.pad_byte(self.eval_mode)
+        self._cuda = scanner.device.type == "cuda"
+        self._streams = ([torch.cuda.Stream(d) for d in scanner.devices]
+                         if self._cuda else [])
+        # per slot: pinned codes, then each shard's pinned outputs
+        # (allocated at first use)
         self._codes: list = [None] * (self.depth + 2)
-        self._outs: list = [None] * (self.depth + 2)
+        self._outs: list = [[None] * self.n_shards for _ in range(self.depth + 2)]
         # observability for adaptive placement: how often the consumer had
         # to wait on the device vs found the result already materialized
         self.waits = 0
@@ -148,62 +182,73 @@ class ScanPipe:
         return [c for c in calls if c.segs]
 
     # -- dispatch ---------------------------------------------------------
-    def _out_pins(self, i: int, outs) -> tuple:
-        """Pinned host buffers of slot i for a call's device outputs (the
+    def _out_pins(self, i: int, shard: int, outs) -> tuple:
+        """Pinned host buffers of slot i for one shard's device outputs (the
         first sized for a full call's rows; the ramp-up uses a prefix)."""
-        if self._outs[i] is None:
+        if self._outs[i][shard] is None:
             first = outs[0]
-            self._outs[i] = (
-                torch.empty((self.rows, *first.shape[1:]), dtype=first.dtype,
-                            pin_memory=True),
+            self._outs[i][shard] = (
+                torch.empty((self.max_rows // self.n_shards, *first.shape[1:]),
+                            dtype=first.dtype, pin_memory=True),
                 *(torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
                   for o in outs[1:]),
             )
-        pins = self._outs[i]
+        pins = self._outs[i][shard]
         return (pins[0][: outs[0].shape[0]], *pins[1:])
 
-    def _fill(self, buf: np.ndarray, jobs, call: _Call) -> None:
-        # pad with 'A': padding windows are sliced off by the segment map
+    def _fill(self, buf: np.ndarray, jobs, call: _Call, rows: int) -> None:
+        # pad with 'A': padding windows are sliced off by the segment map;
+        # the rows past `rows` only pad the call to the shard count
         buf.fill(ord("A"))
+        buf[rows:] = self._pad
         for s in call.segs:
             codes = jobs[s.job][1]
             buf[s.row, s.off : s.off + s.nw + self.k - 1] = codes[
                 s.w0 : s.w0 + s.nw + self.k - 1
             ]
 
-    def _launch(self, codes) -> tuple:
+    def _launch(self, shard: int, codes) -> tuple:
         if self.eval_mode:
             # fused scan + site eval (raw transfer; the tables' D2H dwarfs
             # what a packed transfer would save); the returned tuple also
             # carries the call's device scratch, which the pending call keeps
-            return self.scanner.scan_eval_packed(codes, self.k)
-        return (self.scanner.scan_packed(codes, self.k),)
+            return self.scanner.eval_shard(shard, codes, self.k)
+        return (self.scanner.scan_shard(shard, codes, self.k),)
 
     def _dispatch(self, jobs, call: _Call, call_idx: int) -> _Pending:
         rows = self._call_rows(call_idx)
+        total = self.scanner.padded_rows(rows)
         self.calls += 1
         if not self._cuda:
-            buf = np.empty((rows, self.row_bytes), np.uint8)
-            self._fill(buf, jobs, call)
-            return _Pending(tuple(o.numpy() for o in self._launch(buf)))
+            buf = np.empty((total, self.row_bytes), np.uint8)
+            self._fill(buf, jobs, call, rows)
+            parts = self.scanner.split_rows(torch.from_numpy(buf))
+            return _Pending([tuple(o.numpy() for o in self._launch(s, part))
+                             for s, part in enumerate(parts)])
         i = call_idx % len(self._codes)
         if self._codes[i] is None:
-            self._codes[i] = torch.empty((self.rows, self.row_bytes),
+            self._codes[i] = torch.empty((self.max_rows, self.row_bytes),
                                          dtype=torch.uint8, pin_memory=True)
-        codes_pin = self._codes[i][:rows]
-        self._fill(codes_pin.numpy(), jobs, call)
-        stream = self._stream
-        # the filter words were uploaded on another stream
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            codes_dev = codes_pin.to(self.device, non_blocking=True)
-            outs = self._launch(codes_dev)
-            pins = self._out_pins(i, outs)
-            for pin, out in zip(pins, outs):
-                pin.copy_(out, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(stream)
-        return _Pending(tuple(p.numpy() for p in pins), event, (codes_dev, outs))
+        codes_pin = self._codes[i][:total]
+        self._fill(codes_pin.numpy(), jobs, call, rows)
+        outs, events, keep = [], [], []
+        for s, (part, dev, stream) in enumerate(
+                zip(self.scanner.split_rows(codes_pin), self.scanner.devices,
+                    self._streams)):
+            # the filter words were uploaded on another stream
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                codes_dev = part.to(dev, non_blocking=True)
+                dev_outs = self._launch(s, codes_dev)
+                pins = self._out_pins(i, s, dev_outs)
+                for pin, out in zip(pins, dev_outs):
+                    pin.copy_(out, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(stream)
+            outs.append(tuple(p.numpy() for p in pins))
+            events.append(event)
+            keep.append((codes_dev, dev_outs))
+        return _Pending(outs, events, keep)
 
     # -- execution --------------------------------------------------------
     def run(self, jobs):
@@ -268,7 +313,8 @@ class ScanPipe:
                 call, fut = inflight.popleft()
                 pump()  # keep the device queue full before blocking
                 t0 = time.perf_counter()
-                outs = fut.result()  # blocks for THIS call only
+                # blocks for THIS call's shards only
+                outs = merge_shards(fut.result(), nw_row)
                 dt = time.perf_counter() - t0
                 self.wait_s += dt
                 if not first_wait:

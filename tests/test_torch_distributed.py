@@ -1,9 +1,9 @@
-"""The port's single-host batch primitives (parallel/distributed.py and the
-checkpoint manifest of pipeline/engine.py) against the JAX package's: the
-single-host cases of tests/test_distributed.py, each run through both
-packages, the files they leave compared byte for byte.  Multi-host runs
-over torch.distributed are not ported (ROADMAP.md queue 1 item 3): a
-configured coordinator raises (tests/test_torch_slice.py)."""
+"""The port's batch primitives (parallel/distributed.py and the checkpoint
+manifest of pipeline/engine.py) against the JAX package's: the single-host
+cases of tests/test_distributed.py, each run through both packages, the
+files they leave compared byte for byte, and the port's rendezvous over
+torch.distributed in one process.  Two-process runs, and their resume
+after a failure, are in tests/test_torch_multihost.py."""
 
 import os
 import threading
@@ -71,6 +71,49 @@ def test_reap_timeout(tmp_path, mod):
 def test_init_distributed_noop_single_host(monkeypatch):
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
     assert dist.init_distributed() == jdist.init_distributed() == (0, 1)
+
+
+def test_init_distributed_joins_and_leaves_a_group(monkeypatch):
+    """A configured coordinator joins a gloo group (here of one process,
+    from the JAX package's variables) and shutdown_distributed leaves it."""
+    import socket
+
+    import torch.distributed as tdist
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", f"127.0.0.1:{port}")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "1")
+    monkeypatch.setenv("JAX_PROCESS_ID", "0")
+    try:
+        assert dist.init_distributed() == (0, 1)
+        assert tdist.is_initialized() and tdist.get_backend() == "gloo"
+    finally:
+        dist.shutdown_distributed()
+    assert not tdist.is_initialized()
+    with pytest.raises(ValueError, match="outside"):
+        dist.init_distributed(f"127.0.0.1:{port}", 2, 2)
+
+
+def test_configured_hosts_and_target_refusal(monkeypatch):
+    """configured_hosts reads the hosts before any rendezvous; check_ported
+    keeps --target on one host."""
+    from goldpolish_tpu_torch.config import PipelineConfig
+    from goldpolish_tpu_torch.pipeline import bulk
+
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "4")
+    assert dist.configured_hosts() == 1
+    cfg = PipelineConfig(target=True, backend="numpy")
+    bulk.check_ported(cfg)
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "127.0.0.1:1")
+    assert dist.configured_hosts() == 4
+    assert dist.configured_hosts(num_processes=1) == 1
+    with pytest.raises(ValueError, match="--target runs on one host"):
+        bulk.check_ported(cfg)
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "1")
+    bulk.check_ported(cfg)
 
 
 # tests/test_distributed.py:53

@@ -35,6 +35,7 @@ _SLICE_MODULES = [
     "ops.bloom_sort", "ops.nthash_device", "ops.bloom_device", "ops.siteeval_device",
     "ops.dbg_extend", "mapper", "pipeline.targeted", "tools", "tools.bf",
     "tools.ntedit", "tools.sealer", "tools.mask", "tools.to_upper",
+    "parallel.distributed", "parallel.mesh",
 ]
 
 

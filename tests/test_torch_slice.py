@@ -226,7 +226,7 @@ def test_pipelined_polish_many_shape_fuzz(monkeypatch):
     assert [o for o, _r, _e in got_pool] == want
 
 
-def test_unported_paths_refuse(tmp_path, monkeypatch):
+def test_unported_paths_refuse(tmp_path):
     cfg = _golden(PipelineConfig, str(tmp_path), 1, backend="numpy")
     cfg.device_bf_build = True  # acts only with the jax backend
     with pytest.raises(ValueError, match="device_bf_build"):
@@ -254,9 +254,6 @@ def test_unported_paths_refuse(tmp_path, monkeypatch):
                      "-m", str(tmp_path / name), *extra]) == 0
     with open(outs[0], "rb") as a, open(outs[1], "rb") as b:
         assert a.read() == b.read()
-    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        bulk.run_bulk(cfg)
 
 
 # -- the overlapped device fill (--fill-overlap, kernel 5's plain version) ----
