@@ -47,6 +47,22 @@ raises and the script exits non-zero without the result line.
             p = 0.75 filter whose bit count is no power of two, 341 and 21
             combos), and kernel 7 at k = 72 and 128 on 2^16 vertices of
             its truth at D = 1 and D = 32, each row with the card's name.
+            Then kernel 8 (scan_present_packed2, the 2-bit packed
+            transfer) against its plain version and against kernel 2 on
+            the raw rows (`kernel_scan_packed2`): [4, 2^19 + k - 1] rows of
+            a mutated draft with seeded lowercase acgt and 256, 231, 128
+            and 17 exceptions (N, IUPAC, bytes 1, 3, 4, 7 and others),
+            packed as the scan pipe packs them (entries shuffled, some
+            padding past L), at k = 32, 28, 24, 20, 72 and 128, against
+            the truth filter, a p = 0.75 filter and one whose bit count is
+            no power of two, with both kernels' times and the H2D bytes of
+            the packed call against the raw one; its edge sweep
+            (`kernel_scan_packed2_edges`): kernel 2's 128 edge shapes plus
+            k = 400 and 1100 (its second form), exceptions at the rows'
+            ends, in the halo and on both sides of a tile boundary, a row
+            of exactly 256, the packed rows also at an odd byte offset;
+            and a filter's upload pageable against through pinned memory
+            (`filter_upload`, 4 and 16 MiB).
             Times after
             warm-up: `ms` and `plain_ms` per call of back-to-back calls
             between two CUDA events (host included), `device_ms` the
@@ -69,6 +85,14 @@ raises and the script exits non-zero without the result line.
             chains from its frontier with dbg_extend_chain, kernel 7, for
             up to dbg_extend.CHAIN_STEPS levels) and the same config with
             PipelineConfig.device_bf_build (kernel 5 fills every batch).
+            After the numpy arm, `hybrid_eval_off_packed`: the eval-off
+            arm on the draft with each n run replaced by seeded ACGT and a
+            seeded IUPAC byte about every 4 kbp (~130 exceptions a 2^19-byte
+            row, so the scan pipe's calls go 2-bit packed, kernel 8), and
+            the numpy arm on that input (`main_packed_route`: bytes
+            equal, kernel 8 launched; the packed and raw calls of this arm
+            and of the eval-off arm, whose gapped draft sends most calls
+            raw; each arm's packing seconds, from native.pack2 wrapped).
             Requires the first three outputs and the jax arm's
             byte-identical; the default arm: scan_eval launches > 0, walker
             table hits > 0; the eval-off arm: scan kernel launches > 0; the
@@ -100,7 +124,8 @@ raises and the script exits non-zero without the result line.
             first contig: every arm walks with the Python two-phase engine
             there) in four arms, hybrid under the A/B lock, hybrid forced,
             jax and numpy, the device arms' bytes equal to numpy's, every
-            chain round of the jax arm held against its plain version;
+            chain round of the jax arm held against its plain version, the
+            forced arm's packed (kernel 8) and raw (kernel 2) calls printed;
             `main_internal_map`, the default arm without --mappings (the
             internal mapper; prints the mapped reads), its bytes equal to
             a numpy run given the mapper's TSV; `targeted`, --target on
@@ -118,7 +143,10 @@ raises and the script exits non-zero without the result line.
             one-shard call on its rows and their merge
             (scanpipe.merge_shards) equal to the one-shard call on all
             rows where no call overflows s_max, each shard launching once
-            (`device_ms` at one and two shards); the hybrid engine with two
+            (`device_ms` at one and two shards, or the CUDA-event
+            `event_ms` where the profiler recorded no event), and kernel 8
+            (`sharded_scan2`) on those rows with exceptions, packed, and
+            on their first 3 rows; the hybrid engine with two
             shards on one batch (the first contig) with its own filters at
             k = 32, 28, 24, 20, bytes equal to one shard's, kernel 4
             launched on both; parallel/mesh.sharded_scan_step on a 2 x 2
@@ -168,7 +196,7 @@ raises and the script exits non-zero without the result line.
 
 Then a {"kernels": [...]} line (launches counted on the path each kernel
 serves: the main path's default arm for scan_eval, its eval-off arm for
-the scan, its overlap arm for the fill (the sum of its two wrappers), its
+the scan, its packed-route arm for kernel 8, its overlap arm for the fill (the sum of its two wrappers), its
 device_bf_build arm for site_eval, its jax arm for dbg_extend_chain (timed
 on that arm's largest round), phase 5 for the BFS; the probe is fused
 into all of them and launches nothing on its own; each kernel's bound from
@@ -179,6 +207,7 @@ its call's own inputs, see HBM_BYTES_PER_S), and last the line
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import os
@@ -370,24 +399,39 @@ def probe_requests(words, bits: int, lo) -> int:
     return requests
 
 
-def truth_scan_inputs(row: int, ks=K_VALUES):
-    """The scan's input on the main path, per k of ks: [4, row + k - 1]
-    rows cut from a mutated draft, and a 4 MiB filter of its truth's
-    k-mers (h = 4).  Its own generator, so the other phases keep their
-    inputs."""
-    from goldpolish_tpu_torch.ops import bloom
+@functools.lru_cache(maxsize=None)
+def truth_draft(row: int) -> tuple[np.ndarray, np.ndarray]:
+    """(truth codes, mutated draft codes) of truth_scan_inputs.  Its own
+    generator, so the other phases keep their inputs."""
     from goldpolish_tpu_torch.ops import nthash as nt
 
     rng = np.random.default_rng(SEED + 2)
     acgt = np.frombuffer(b"ACGT", np.uint8)
     truth = acgt[rng.integers(0, 4, 4 * row + 2000)].tobytes().decode()
     draft = np.frombuffer("".join(mutate(truth, rng)).encode(), np.uint8)
-    truth = nt.encode(truth)
+    return nt.encode(truth), draft
+
+
+@functools.lru_cache(maxsize=None)
+def truth_scan_input(row: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """(filter words, rows) of truth_scan_inputs at k, built once (the
+    kernel phases and the sharded phase share them; callers copy)."""
+    from goldpolish_tpu_torch.ops import bloom
+    from goldpolish_tpu_torch.ops import nthash as nt
+
+    truth, draft = truth_draft(row)
+    bf = bloom.BloomFilter(FILTER_BITS // 8, 4, k)
+    bf.insert(nt.multi_hashes(nt.canonical_hashes(truth, k), k, 4))
+    rows = np.stack([draft[i * row : (i + 1) * row + k - 1] for i in range(4)])
+    return bf.words_u32().view(np.int32).copy(), rows
+
+
+def truth_scan_inputs(row: int, ks=K_VALUES):
+    """The scan's input on the main path, per k of ks: [4, row + k - 1]
+    rows cut from a mutated draft, and a 4 MiB filter of its truth's
+    k-mers (h = 4)."""
     for k in ks:
-        bf = bloom.BloomFilter(FILTER_BITS // 8, 4, k)
-        bf.insert(nt.multi_hashes(nt.canonical_hashes(truth, k), k, 4))
-        rows = np.stack([draft[i * row : (i + 1) * row + k - 1] for i in range(4)])
-        yield k, bf.words_u32().view(np.int32).copy(), rows
+        yield (k, *truth_scan_input(row, k))
 
 
 def scan_requests(words, bits: int, h: int, k: int, codes) -> int:
@@ -520,6 +564,211 @@ def scan_edges() -> dict:
     for case in cases:
         scan_edge_check(case)
     return {"cases": len(cases), "nw": list(SCAN_EDGE_NW), "equal": True}
+
+
+# kernel 8's exception bytes: N, IUPAC (upper and lower), the bytes with a
+# forward seed that the JAX route misclasses (1, 3, 4, 7) and others
+EXC_BYTES = np.frombuffer(b"NnRYSWKMBDHVrykmswbdhv" + bytes([0, 1, 3, 4, 7, 9, 127, 200, 255]),
+                          np.uint8)
+PACKED2_KS = (32, 28, 24, 20, 72, 128)
+PACKED2_EXCEPTIONS = (256, 231, 128, 17)  # per row of a [4, 2^19 + k - 1] call
+
+
+def exc_bucket() -> int:
+    from goldpolish_tpu_torch.polish import scanpipe
+
+    return scanpipe.ScanPipe.EXC_BUCKET
+
+
+def with_exceptions(rng, rows: np.ndarray, counts) -> np.ndarray:
+    """ACGT rows with 2% lowercase acgt and counts[r] non-ACGT bytes
+    (EXC_BYTES) at distinct seeded positions of row r."""
+    codes = rows.copy()
+    codes[rng.random(codes.shape) < 0.02] |= 32
+    for r, n in enumerate(counts):
+        pos = rng.choice(codes.shape[1], n, replace=False)
+        codes[r, pos] = EXC_BYTES[rng.integers(0, len(EXC_BYTES), n)]
+    return codes
+
+
+def pack_call(codes: np.ndarray, rng=None):
+    """A call's rows 2-bit packed as the scan pipe sends them: (packed
+    uint8 [B, ceil(L/4)], exc_idx int64 [B, E], exc_byte uint8 [B, E]),
+    E = EXC_BUCKET, padding entries at position L.  With `rng`, some
+    padding entries lie past L and each row's entries are shuffled (kernel
+    8 relies on no order).  Raises where a row overflows."""
+    from goldpolish_tpu_torch import native
+
+    b, length = codes.shape
+    cap = exc_bucket()
+    packed = np.zeros((b, -(-length // 4)), np.uint8)
+    idx = np.full((b, cap), length, np.int64)
+    byt = np.zeros((b, cap), np.uint8)
+    for r in range(b):
+        res = native.pack2(codes[r], cap)
+        if res is None:
+            raise AssertionError(f"row {r} holds more than {cap} exceptions")
+        packed[r], m = res[0], len(res[1])
+        idx[r, :m], byt[r, :m] = res[1], res[2]
+        if rng is not None:
+            idx[r, m:] += rng.choice([0, 7, 1 << 40], cap - m)
+            byt[r, m:] = rng.integers(0, 256, cap - m)
+            perm = rng.permutation(cap)
+            idx[r], byt[r] = idx[r, perm], byt[r, perm]
+    return packed, idx, byt
+
+
+def scan_packed2_rows(card: str) -> list[dict]:
+    """Kernel 8 against its plain version and against kernel 2 on the raw
+    rows, bit-equal, on [4, 2^19 + k - 1] calls at k = 32, 28, 24, 20, 72
+    and 128: rows of a mutated draft with seeded lowercase acgt and 256,
+    231, 128 and 17 exceptions (PACKED2_EXCEPTIONS, EXC_BYTES), packed as
+    the pipe packs them (entries shuffled, some padding past L), against a
+    4 MiB filter of its truth's k-mers, a p = 0.75 filter and a p = 0.75
+    filter whose bit count is no power of two.  Each row: both kernels'
+    `ms` and `device_ms`, kernel 8's plain version's and bound, and the H2D
+    bytes of the packed call against the raw one."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import scan_conv as sc
+
+    rng = np.random.default_rng(SEED + 6)
+    dev = torch.device("cuda")
+    bits2 = NON_POW2_BYTES * 8
+    p75 = torch.from_numpy(random_words(rng, FILTER_BITS)).to(dev)
+    non_pow2 = torch.from_numpy(random_words(rng, bits2)).to(dev)
+    out = []
+    for k, truth, rows in truth_scan_inputs(1 << 19, PACKED2_KS):
+        codes = with_exceptions(rng, rows, PACKED2_EXCEPTIONS)
+        length = codes.shape[1]
+        host = pack_call(codes, rng)
+        packed, idx, byt = (torch.from_numpy(a).to(dev) for a in host)
+        raw = torch.from_numpy(codes).to(dev)
+        truth = torch.from_numpy(truth).to(dev)
+        for label, words, bits in (("truth", truth, FILTER_BITS), ("p75", p75, FILTER_BITS),
+                                   ("p75_non_pow2", non_pow2, bits2)):
+            args = (words, bits, 4, k, length, packed, idx, byt)
+            got = sc.scan_present_packed2(*args)
+            plain = sc.scan_present_packed2_reference(*args)
+            k2 = sc.scan_present_packed(words, bits, 4, k, raw)
+            err = max(int_err(got, plain), int_err(got, k2))
+            row = {"k": k, "filter": label, "shape": list(codes.shape),
+                   "exceptions": list(PACKED2_EXCEPTIONS), "equal": not err,
+                   "max_abs_err": err}
+            if label != "p75_non_pow2":
+                nw = length - k + 1
+                row.update({
+                    "ms": time_ms(lambda: sc.scan_present_packed2(*args), 20),
+                    "device_ms": device_ms(lambda: sc.scan_present_packed2(*args), 20),
+                    "kernel2_ms": time_ms(lambda: sc.scan_present_packed(
+                        words, bits, 4, k, raw), 20),
+                    "kernel2_device_ms": device_ms(lambda: sc.scan_present_packed(
+                        words, bits, 4, k, raw), 20),
+                    "plain_ms": time_ms(lambda: sc.scan_present_packed2_reference(*args),
+                                        3, warm=1) if k == PACKED2_KS[0] else None,
+                    "h2d_bytes_packed": tensor_bytes(packed, idx, byt),
+                    "h2d_bytes_raw": tensor_bytes(raw),
+                    **bound(tensor_bytes(words, packed, idx, byt, got), 4 * codes.shape[0] * nw),
+                    "card": card})
+            out.append(row)
+            emit(phase="kernel_scan_packed2", **row)
+            if err:
+                raise AssertionError(f"kernel 8 disagrees at k={k} ({label}): {row}")
+    return out
+
+
+def scan2_edge_cases():
+    """Every case of kernel 8's edge sweep: kernel 2's (scan_edge_cases),
+    then k = 400 (kernel 8's second form, past ~360) and 1100."""
+    return (scan_edge_cases() + [(nw, 400, 4, 3, pow2) for nw in (1, 2049)
+                                 for pow2 in (True, False)] + [(2049, 1100, 2, 1, True)])
+
+
+def scan2_edge_case(nw: int, k: int, h: int, B: int, pow2: bool):
+    """scan_edge_case's rows and filter with exceptions at the rows' ends,
+    in the last window's k - 1 halo and on both sides of the 2,048-window
+    tiles (bytes 2047, 2048, 2048 + k - 2, 2048 + k - 1, 4095, 4096), row 1
+    of three holding exactly EXC_BUCKET exceptions where it is that long:
+    (filter, codes, (packed, exc_idx, exc_byte) as pack_call gives them)."""
+    bf, codes = scan_edge_case(nw, k, h, B, pow2)
+    rng = np.random.default_rng([nw, k, h, B, int(pow2), 8])
+    length = codes.shape[1]
+    edges = [p for p in (0, 1, length - k + 1, length - 2, length - 1, 2047, 2048,
+                         2048 + k - 2, 2048 + k - 1, 4095, 4096) if p < length]
+    codes[:, edges] = EXC_BYTES[rng.integers(0, len(EXC_BYTES), (B, len(edges)))]
+    cap = exc_bucket()
+    if B > 1 and length >= cap:
+        acgt = np.isin(codes[1], np.frombuffer(b"ACGTacgt", np.uint8))
+        extra = cap - int((~acgt).sum())
+        if extra > 0:
+            pos = rng.choice(np.flatnonzero(acgt), extra, replace=False)
+            codes[1, pos] = EXC_BYTES[rng.integers(0, len(EXC_BYTES), extra)]
+    return bf, codes, pack_call(codes, rng)
+
+
+def scan2_edge_check(case) -> None:
+    """Kernel 8 against the plain raw scan on one edge case, the packed
+    rows also at an odd byte offset of their buffer; raises on a
+    mismatch."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import scan_conv as sc
+
+    bf, codes, (packed, idx, byt) = scan2_edge_case(*case)
+    _nw, k, h, _B, _pow2 = case
+    words = torch.from_numpy(bf.words_u32().view(np.int32).copy())
+    want = sc.scan_present_packed_reference(words, int(bf.bits), h, k,
+                                            torch.from_numpy(codes))
+    flat = torch.zeros(packed.size + 1, dtype=torch.uint8, device="cuda")
+    flat[1:] = torch.from_numpy(packed).cuda().flatten()
+    idx, byt = torch.from_numpy(idx).cuda(), torch.from_numpy(byt).cuda()
+    for dev_packed in (torch.from_numpy(packed).cuda(), flat[1:].view(packed.shape)):
+        got = sc.scan_present_packed2(words.cuda(), int(bf.bits), h, k, codes.shape[1],
+                                      dev_packed, idx, byt)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"kernel 8 disagrees with plain on edge {case}")
+
+
+def scan2_edges() -> dict:
+    """Every edge case of kernel 8 on the card (scan2_edge_check)."""
+    cases = scan2_edge_cases()
+    for case in cases:
+        scan2_edge_check(case)
+    return {"cases": len(cases), "nw": list(SCAN_EDGE_NW), "k": [20, 32, 400, 1100],
+            "exceptions_per_row_max": exc_bucket(), "equal": True}
+
+
+def filter_uploads(card: str) -> dict:
+    """A filter's upload to the card, the main path's 4 MiB and the sealer
+    phase's 16 MiB, pageable (`torch.from_numpy(words).to(device)`, the
+    scanner's and bloom_device's route before they took
+    cuda_build.to_device) against staged through pinned memory
+    (cuda_build.to_device), in turns: host ms per upload (synchronised)
+    and the copy's device ms."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import cuda_build
+
+    rng = np.random.default_rng(SEED + 7)
+    line = {"card": card}
+    for nbytes in (FILTER_BITS // 8, SEALER_FILTER_BYTES):
+        words = random_words(rng, nbytes * 8)
+        routes = {"pageable": lambda: torch.from_numpy(words.copy()).to("cuda"),
+                  "pinned": lambda: cuda_build.to_device(words, "cuda")}
+        times: dict = {name: [] for name in routes}
+        for _ in range(2):
+            for name in ("pageable", "pinned", "pinned", "pageable"):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                for _ in range(5):
+                    routes[name]()
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t) / 5 * 1e3)
+        for name, fn in routes.items():
+            line[f"{name}_{nbytes >> 20}MiB_ms"] = sorted(times[name])[len(times[name]) // 2]
+            line[f"{name}_{nbytes >> 20}MiB_device_ms"] = device_ms(fn, 5, only="Memcpy HtoD")
+    emit(phase="filter_upload", **line)
+    return line
 
 
 def mutate(t: str, rng) -> list[str]:
@@ -1133,6 +1382,41 @@ def chain_err(frontiers) -> int:
     return err
 
 
+class PackTally:
+    """The scan pipe's row packing while active: wraps native.pack2 (the
+    pipe binds it when it is made) and sums its seconds, the rows it
+    packed and the rows that overflowed EXC_BUCKET (whose calls went
+    raw)."""
+
+    def __enter__(self):
+        from goldpolish_tpu_torch import native
+
+        self.rows = self.overflows = 0
+        self.seconds = 0.0
+        self._saved = native.pack2
+        if self._saved is None:  # the packer unset: the pipes send raw bytes
+            return self
+        lock = threading.Lock()
+
+        def pack2(*args, **kw):
+            t = time.perf_counter()
+            res = self._saved(*args, **kw)
+            with lock:
+                self.seconds += time.perf_counter() - t
+                self.rows += 1
+                self.overflows += res is None
+            return res
+
+        native.pack2 = pack2
+        return self
+
+    def __exit__(self, *exc):
+        from goldpolish_tpu_torch import native
+
+        native.pack2 = self._saved
+        return False
+
+
 def main_counters() -> dict:
     """The launch counts of every kernel wrapper and the call counts of
     every plain version that the main path can reach."""
@@ -1146,12 +1430,14 @@ def main_counters() -> dict:
     return {
         "scan_eval_launches": se.scan_eval.launches,
         "scan_kernel_launches": sc.scan_present_packed.launches,
+        "scan2_kernel_launches": sc.scan_present_packed2.launches,
         "site_eval_launches": sd.site_eval.launches,
         "dbg_extend_launches": de.dbg_extend_chain.launches,
         "probe_kernel_launches": bp.probe_lo32.launches,
         **{f"fill_{op.__name__}_launches": op.launches for op in bs.KERNEL_OPS},
         "plain_scan_eval": se.scan_eval_reference.calls,
         "plain_scan": sc.scan_present_packed_reference.calls,
+        "plain_scan2": sc.scan_present_packed2_reference.calls,
         "plain_site_eval": sd.eval_sites_device_reference.calls,
         "plain_dbg_extend4": de.dbg_extend4_reference.calls,
         "plain_dbg_extend_chain": de.dbg_extend_chain_reference.calls,
@@ -1232,7 +1518,7 @@ def run_arm(inp: dict, name: str, env: dict, *extra: str,
     try:
         t = time.monotonic()
         with env_set(env), SealerTally() as tally, WalkTally() as walk, \
-                ProbeLog() as probes:
+                ProbeLog() as probes, PackTally() as packs:
             rc = main_path()
         wall = time.monotonic() - t
     finally:
@@ -1253,7 +1539,9 @@ def run_arm(inp: dict, name: str, env: dict, *extra: str,
                 device_filled_batches=run["device_filled_batches"],
                 sealer_s=tally.sealer_s, gaps_found=tally.gaps_found,
                 gaps_closed=tally.gaps_closed, table_hits=walk.hits,
-                table_giveups=walk.giveups, **probes.summary(), **counts,
+                table_giveups=walk.giveups, **probes.summary(),
+                pack2_rows=packs.rows, pack2_overflows=packs.overflows,
+                pack2_s=packs.seconds, **counts,
                 plain_calls=sum(v for key, v in counts.items() if key.startswith("plain")))
     emit(phase=f"main_{name}", **line)
     return {**line, "bytes": data, "records": recs, "argv": argv,
@@ -1285,6 +1573,62 @@ def one_batch_input(inp: dict) -> dict:
         seqindex.SeqIndex.build(path).save(path + ".index")
     return {**inp, "draft": draft, "reads": reads, "draft_bp": len(seq),
             "truths": inp["truths"][:1], "contig": name, "n_reads": len(ids)}
+
+
+PACKED_IUPAC_EVERY = 4000  # the packed arm's draft: one IUPAC byte per ~4 kbp
+
+
+def packed_route_input(inp: dict) -> dict:
+    """The main path's input with a draft the packed transfer takes: each
+    `n` run of the draft replaced by seeded ACGT of its length (so the PAF
+    still holds) and a seeded IUPAC byte at about every 4 kbp (~130
+    exceptions a 2^19-byte row, under EXC_BUCKET).  Reads and PAF are the
+    main path's."""
+    from goldpolish_tpu_torch.io import seqindex
+
+    rng = np.random.default_rng(SEED + 9)
+    acgt, iupac = (np.frombuffer(b, np.uint8) for b in (b"ACGT", b"RYSWKMBDHV"))
+    draft = os.path.join(inp["work"], "draft_packed.fa")
+    with open(draft, "w") as f:
+        for name, seq in read_fasta(inp["draft"]):
+            a = np.frombuffer(seq.encode(), np.uint8).copy()
+            gap = a == ord("n")
+            a[gap] = acgt[rng.integers(0, 4, int(gap.sum()))]
+            pos = rng.choice(len(a), len(a) // PACKED_IUPAC_EVERY, replace=False)
+            a[pos] = iupac[rng.integers(0, len(iupac), len(pos))]
+            f.write(f">{name}\n{a.tobytes().decode()}\n")
+    seqindex.SeqIndex.build(draft).save(draft + ".index")
+    return {**inp, "draft": draft}
+
+
+def phase_packed_route(inp: dict, off: dict) -> dict:
+    """The packed transfer on the main path: `hybrid_eval_off_packed`,
+    the eval-off arm (GPTPU_DEVICE_EVAL=0, 4 batches, 4 k) on
+    packed_route_input's draft, against the numpy backend on that input.
+    Its bytes must equal numpy's and kernel 8 must launch; prints the
+    packed (kernel 8) and raw (kernel 2) calls of this arm and of the
+    eval-off arm on the gapped draft, and each arm's packing seconds."""
+    t = time.monotonic()
+    packed_inp = packed_route_input(inp)
+    arm = run_arm(packed_inp, "hybrid_eval_off_packed",
+                  {**FORCE, "GPTPU_DEVICE_EVAL": "0"}, "--backend", "hybrid")
+    host = run_arm(packed_inp, "numpy_packed_input", {}, "--backend", "numpy")
+    arm["name"] = "hybrid_eval_off_packed"
+    line = {"equals_numpy": arm["bytes"] == host["bytes"],
+            **{f"{name}_{key}": a[key] for name, a in (("packed_arm", arm),
+                                                      ("eval_off", off))
+               for key in ("wall_s", "ntedit_s", "pack2_s", "pack2_rows",
+                           "pack2_overflows")},
+            "packed_arm_packed_calls": arm["scan2_kernel_launches"],
+            "packed_arm_raw_calls": arm["scan_kernel_launches"],
+            "eval_off_packed_calls": off["scan2_kernel_launches"],
+            "eval_off_raw_calls": off["scan_kernel_launches"],
+            "numpy_wall_s": host["wall_s"], "seconds": time.monotonic() - t}
+    emit(phase="main_packed_route", **line)
+    if not line["equals_numpy"]:
+        raise AssertionError(f"the packed arm's output differs from numpy: {line}")
+    require_launches(arm, "scan2_kernel")
+    return {**line, "launches": arm["scan2_kernel_launches"]}
 
 
 def require_launches(line: dict, *names: str) -> None:
@@ -1328,6 +1672,10 @@ def phase_main_k72(inp: dict) -> dict:
            for name, arm in arms.items() if name != "numpy"},
         **{f"{name}_wall_s": arm["wall_s"] for name, arm in arms.items()},
         "hybrid_lock_scan_launches": arms["hybrid_lock"]["scan_kernel_launches"],
+        # the forced arm's scan calls: packed (kernel 8) and raw (kernel 2);
+        # the draft's n gaps (~600 exceptions a row) send most calls raw
+        "hybrid_forced_packed_calls": arms["hybrid_forced"]["scan2_kernel_launches"],
+        "hybrid_forced_raw_calls": arms["hybrid_forced"]["scan_kernel_launches"],
         "gaps_found": jax["gaps_found"], "gaps_closed": jax["gaps_closed"],
         "jax_rounds": len(jax["frontiers"]), "chain_max_abs_err": err,
     }
@@ -1483,12 +1831,14 @@ def int_err(got, want) -> int:
 
 
 class ShardTally:
-    """Counts each scanner shard's kernel 2 and kernel 4 launches while
-    active: wraps DeviceScanner.scan_shard and eval_shard, and gives each
-    call the change of the kernel's own launch count (the wrapper's, which
-    it adds to where it launches) across that call.  `scan_total` and
-    `eval_total` are the counts' changes over the whole tally, which the
-    shards' sums must equal."""
+    """Counts each scanner shard's kernel 2, kernel 4 and kernel 8 launches
+    while active: wraps DeviceScanner.scan_shard, eval_shard and
+    scan2_shard, and gives each call the change of the kernel's own launch
+    count (the wrapper's, which it adds to where it launches) across that
+    call.  `scan_total`, `eval_total` and `scan2_total` are the counts'
+    changes over the whole tally, which the shards' sums must equal."""
+
+    NAMES = ("scan_shard", "eval_shard", "scan2_shard")
 
     def __enter__(self):
         from goldpolish_tpu_torch.ops import scan_conv as sc
@@ -1496,29 +1846,34 @@ class ShardTally:
 
         self.scan: dict = {}
         self.eval: dict = {}
-        self._counters = (sc.scan_present_packed.launches, scan_eval.scan_eval.launches)
+        self.scan2: dict = {}
+        self._counters = (sc.scan_present_packed.launches, scan_eval.scan_eval.launches,
+                          sc.scan_present_packed2.launches)
         self._start = [c.value for c in self._counters]
-        self._saved = (sc.DeviceScanner.scan_shard, sc.DeviceScanner.eval_shard)
+        self._saved = [getattr(sc.DeviceScanner, n) for n in self.NAMES]
         lock = threading.Lock()
 
         def counted(fn, tally, counter):
-            def call(scanner, s, codes, k):
+            def call(scanner, s, *args):
                 with lock:  # one shard call at a time, so the change is its own
                     before = counter.value
-                    out = fn(scanner, s, codes, k)
+                    out = fn(scanner, s, *args)
                     tally[s] = tally.get(s, 0) + counter.value - before
                 return out
             return call
 
-        sc.DeviceScanner.scan_shard = counted(self._saved[0], self.scan, self._counters[0])
-        sc.DeviceScanner.eval_shard = counted(self._saved[1], self.eval, self._counters[1])
+        for name, fn, tally, counter in zip(self.NAMES, self._saved,
+                                            (self.scan, self.eval, self.scan2),
+                                            self._counters):
+            setattr(sc.DeviceScanner, name, counted(fn, tally, counter))
         return self
 
     def __exit__(self, *exc):
         from goldpolish_tpu_torch.ops import scan_conv as sc
 
-        sc.DeviceScanner.scan_shard, sc.DeviceScanner.eval_shard = self._saved
-        self.scan_total, self.eval_total = (
+        for name, fn in zip(self.NAMES, self._saved):
+            setattr(sc.DeviceScanner, name, fn)
+        self.scan_total, self.eval_total, self.scan2_total = (
             c.value - v for c, v in zip(self._counters, self._start))
         return False
 
@@ -1555,13 +1910,64 @@ def sharded_scan_rows() -> tuple[list[dict], int]:
                "equal": not any(errs), "max_abs_err": max(errs),
                "shard_launches": tally.check(f"sharded_scan k={k}", tally.scan,
                                              tally.scan_total),
-               "device_ms_one_shard": device_ms(lambda: one.scan_packed(codes, k), 20),
-               "device_ms_two_shards": device_ms(lambda: two.scan_packed(codes, k), 20)}
+               **device_or_event_ms("one_shard", lambda: one.scan_packed(codes, k), 20),
+               **device_or_event_ms("two_shards", lambda: two.scan_packed(codes, k), 20)}
         emit(phase="sharded_scan", **row)
         rows_out.append(row)
         worst = max(worst, row["max_abs_err"])
         if not row["equal"]:
             raise AssertionError(f"the two-shard scan differs from one shard: {row}")
+    return rows_out, worst
+
+
+def device_or_event_ms(what: str, fn, reps: int) -> dict:
+    """{"device_ms_<what>": the profiler's device ms per call} or, where
+    the profiler recorded no CUDA event for the calls, {"event_ms_<what>":
+    the CUDA-event ms per call (time_ms, host included)}: never a null."""
+    ms = device_ms(fn, reps)
+    return {f"device_ms_{what}": ms} if ms is not None else {
+        f"event_ms_{what}": time_ms(fn, reps)}
+
+
+def sharded_scan2_rows() -> tuple[list[dict], int]:
+    """Kernel 8 through DeviceScanner(devices=SHARDS) against the
+    one-shard scanner on the truth rows of sharded_scan_rows with
+    exceptions (PACKED2_EXCEPTIONS), packed as the pipe packs them, and on
+    their first 3 rows (the pad row: packed 'A', padding entries); each
+    shard launches once."""
+    import torch
+
+    from goldpolish_tpu_torch.ops import scan_conv as sc
+
+    rng = np.random.default_rng(SEED + 8)
+    rows_out, worst = [], 0
+    for k, words, rows in truth_scan_inputs(1 << 19):
+        one = sc.DeviceScanner.from_words(words.view(np.uint32), FILTER_BITS, 4, "cuda:0")
+        two = sc.DeviceScanner.from_words(words.view(np.uint32), FILTER_BITS, 4,
+                                          devices=SHARDS)
+        codes = with_exceptions(rng, rows, PACKED2_EXCEPTIONS)
+        length = codes.shape[1]
+        call = [torch.from_numpy(a).cuda() for a in pack_call(codes, rng)]
+        errs = [int_err(two.scan_packed2(*(t[:n] for t in call), k, length),
+                        one.scan_packed2(*(t[:n] for t in call), k, length))
+                for n in (4, 3)]
+        errs.append(int_err(one.scan_packed2(*call, k, length),
+                            one.scan_packed(torch.from_numpy(codes).cuda(), k)))
+        with ShardTally() as tally:
+            two.scan_packed2(*call, k, length)
+        row = {"k": k, "shape": list(codes.shape), "rows_3_too": True,
+               "equal": not any(errs), "max_abs_err": max(errs),
+               "shard_launches": tally.check(f"sharded_scan2 k={k}", tally.scan2,
+                                             tally.scan2_total),
+               **device_or_event_ms("one_shard", lambda: one.scan_packed2(*call, k, length),
+                                    20),
+               **device_or_event_ms("two_shards", lambda: two.scan_packed2(*call, k, length),
+                                    20)}
+        emit(phase="sharded_scan2", **row)
+        rows_out.append(row)
+        worst = max(worst, row["max_abs_err"])
+        if not row["equal"]:
+            raise AssertionError(f"the two-shard kernel 8 differs from one shard: {row}")
     return rows_out, worst
 
 
@@ -1714,10 +2120,14 @@ def phase_sharded(inp: dict) -> dict:
     shards on the one card, the engine over them, and the mesh step."""
     t = time.monotonic()
     scans, scan_err = sharded_scan_rows()
+    t2 = time.monotonic()
+    scans2, scan2_err = sharded_scan2_rows()
+    scan2_s = time.monotonic() - t2
     evals, eval_err = sharded_eval_rows()
     polish = sharded_polish(inp)
     grid, mesh_err = sharded_mesh()
     line = {"scan_max_abs_err": max(scan_err, mesh_err), "eval_max_abs_err": eval_err,
+            "scan2_max_abs_err": scan2_err, "scan2_seconds": scan2_s,
             "polish_equal": polish["equal"], "mesh_equal": grid["equal"],
             "seconds": time.monotonic() - t}
     emit(phase="sharded", **line)
@@ -1845,6 +2255,7 @@ def phase_main(rng):
         off = run_arm(inp, "hybrid_eval_off", {**FORCE, "GPTPU_DEVICE_EVAL": "0"},
                       "--backend", "hybrid")
         host = run_arm(inp, "numpy", {}, "--backend", "numpy")
+        packed_route = phase_packed_route(inp, off)
         ov = run_arm(inp, "fill_overlap", {**FORCE, "GPTPU_DEVICE_EVAL": None},
                      "--fill-overlap")
         # the jax backend with the sealer (its lockstep searches walk the
@@ -1920,6 +2331,7 @@ def phase_main(rng):
                                      f"({row['frontier']})")
         launches = {"scan_eval": on["scan_eval_launches"],
                     "scan_present_packed": off["scan_kernel_launches"],
+                    "scan_present_packed2": packed_route["launches"],
                     "probe_lo32": on["probe_kernel_launches"],
                     "bloom_sort_fill": sum(fill_launches),
                     "site_eval": dbb["site_eval_launches"],
@@ -2417,6 +2829,11 @@ def main() -> int:
     sites = phase_site_eval(np.random.default_rng(SEED + 3))
     beyond = phase_beyond_64(card)
     scans, sites = scans + beyond["scan"], sites + beyond["site_eval"]
+    t = time.monotonic()
+    scans2 = scan_packed2_rows(card)
+    emit(phase="kernel_scan_packed2_edges", **scan2_edges())
+    filter_uploads(card)
+    emit(phase="kernel_scan_packed2_phases", seconds=time.monotonic() - t)
     launches, truths, fills, ext_main, paths = phase_main(rng)
     ext_main[0]["max_abs_err"] = max(ext_main[0]["max_abs_err"],
                                      paths["main_k72"]["chain_max_abs_err"],
@@ -2446,6 +2863,16 @@ def main() -> int:
                                *(r["max_abs_err"] for r in scans)),
             "ms": first["ms"], "plain_ms": first["plain_ms"],
             **{key: first[key] for key in keys}, "library_ms": None,
+        },
+        {
+            "name": "scan_present_packed2", "route": "cuda",
+            "source": "goldpolish_tpu_torch/csrc/scan_conv.cu",
+            "replaces": "goldpolish_tpu/ops/scan_conv.py:247",
+            "launches": launches["scan_present_packed2"],
+            "max_abs_err": max(paths["sharded"]["scan2_max_abs_err"],
+                               *(r["max_abs_err"] for r in scans2)),
+            "ms": scans2[0]["ms"], "plain_ms": scans2[0]["plain_ms"],
+            **{key: scans2[0][key] for key in keys}, "library_ms": None,
         },
         {
             "name": "probe_lo32", "route": "cuda",

@@ -4,7 +4,7 @@
 Run from the repository root:
 
     python3 chip_trace.py [--root DIR] [--runs N] [--no-trace]
-                          [--kernels | --jax | --chain-steps]
+                          [--kernels | --jax | --chain-steps | --packed]
 
 It polishes chip_smoke.py's main-path input (the seeded 4.64 Mbp gapped
 draft, its reads and PAF, `-b 1`, k = 32, 28, 24, 20, sealer on) with three
@@ -32,6 +32,15 @@ device time and launches in the traced run.  --chain-steps runs the `jax`
 arm four times over, with the DeviceDBG walking D = 8, 16, 32 and 64
 levels a round (ops/dbg_extend.CHAIN_STEPS set before each run), with the
 same runs and traces: rounds, levels walked and `sealer_s` per D.
+
+--packed runs the eval-off arm (GPTPU_DEVICE_EVAL=0) on the smoke's
+packed-route draft (chip_smoke.packed_route_input: the n runs replaced by
+ACGT, an IUPAC byte every ~4 kbp) twice over: `hybrid_eval_off_packed`,
+the scan pipe's 2-bit packed transfer on (kernel 8), and
+`hybrid_eval_off_raw`, the same with the pipe's packer unset (native.pack2
+None while the arm runs: raw bytes, kernel 2), with the same runs and
+traces (no sealer trace): what packing costs on the host (`pack2_s`) and
+what it saves on the device (the H2D copies by name).
 
 --kernels times kernels 2, 3, 6 and 7 alone instead (chip_smoke.scan_rows,
 bfs_rows, phase_site_eval and probe_rows: every k on both filters, both
@@ -64,6 +73,8 @@ JAX_ARMS = {"jax": (None, ("--backend", "jax"), False),
 # --chain-steps: the jax arm with DeviceDBG's D (dbg_extend.CHAIN_STEPS) at each
 CHAIN_STEPS_SWEEP = (8, 16, 32, 64)
 CHAIN_ARMS = {f"jax_d{d}": JAX_ARMS["jax"] for d in CHAIN_STEPS_SWEEP}
+PACKED_ARMS = {"hybrid_eval_off_packed": ARMS["hybrid_eval_off"],
+               "hybrid_eval_off_raw": ARMS["hybrid_eval_off"]}
 
 
 def device_profile(events) -> dict:
@@ -103,8 +114,12 @@ def main() -> int:
     mode.add_argument("--chain-steps", action="store_true",
                       help="the jax arm (host fill, sealer on) with the DeviceDBG "
                            "walking D = 8, 16, 32 and 64 levels a round")
+    mode.add_argument("--packed", action="store_true",
+                      help="the eval-off arm on the packed-route draft, with the "
+                           "pipe's 2-bit packed transfer and without")
     args = ap.parse_args()
-    arms = JAX_ARMS if args.jax else CHAIN_ARMS if args.chain_steps else ARMS
+    arms = (JAX_ARMS if args.jax else CHAIN_ARMS if args.chain_steps
+            else PACKED_ARMS if args.packed else ARMS)
     import torch
 
     if not torch.cuda.is_available():
@@ -132,6 +147,8 @@ def main() -> int:
             p75 = torch.from_numpy(cs.random_words(rng, cs.FILTER_BITS)).cuda()
             cs.scan_rows(rng, p75, time_plain=False)
         inp = cs.prepare_main(rng, work)
+        if args.packed:
+            inp = cs.packed_route_input(inp)
         if args.kernels:
             from goldpolish_tpu_torch.fill import sealer
 
@@ -151,8 +168,14 @@ def main() -> int:
 
                 dbg_extend.CHAIN_STEPS = int(arm.removeprefix("jax_d"))
             env = {**cs.FORCE, "GPTPU_DEVICE_EVAL": eval_env}
-            line = cs.run_arm(inp, f"{arm}_{i}", env, *cli_args,
-                              device_bf_build=device_bf_build)
+            pack2 = native.pack2
+            if arm == "hybrid_eval_off_raw":
+                native.pack2 = None  # the pipes made in this arm send raw bytes
+            try:
+                line = cs.run_arm(inp, f"{arm}_{i}", env, *cli_args,
+                                  device_bf_build=device_bf_build)
+            finally:
+                native.pack2 = pack2
             shutil.rmtree(os.path.join(work, f"ws_{arm}_{i}"), ignore_errors=True)
             return line
 
@@ -177,7 +200,7 @@ def main() -> int:
             cs.emit(phase=f"trace_{arm}", traced_wall_s=wall,
                     idle_share=1 - dev["device_busy_ms"] / (wall * 1e3),
                     device_filled_batches=line["device_filled_batches"], **dev)
-        if args.jax or args.chain_steps:
+        if args.jax or args.chain_steps or args.packed:
             return 0
         sealer_in = cs.sealer_inputs(inp["truths"])
         cs.seal_hybrid(*sealer_in)  # warm-up: the filters' first upload

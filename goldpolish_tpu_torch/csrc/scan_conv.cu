@@ -71,8 +71,32 @@
 //    classes of TF and the 8 of TR at one j; neighbouring threads read
 //    code bytes 8 apart (a 2-way conflict on those byte loads, the
 //    cheapest loads of the hash).
+//
+// Kernel 8, gp_scan_present_packed2: the same scan over the 2-bit packed
+// transfer.  Base i of a row sits in bits 2 * (i & 3) of byte i >> 2 (A =
+// 0, C = 1, G = 2, T = 3, lowercase packed as uppercase), and a list of E
+// exceptions per row carries the raw byte of every other position (an
+// entry whose index is not below L is padding).  Replaces:
+// goldpolish_tpu/ops/scan_conv.py scan_present_packed2_mxu (:247, whose
+// probe is the Pallas kernel P3), its XLA twin scan_present_packed2_gather
+// (:206) and _classes_from_packed (:104).  The TPU decodes to one-hot
+// classes; here the tile of bytes that kernel 2 stages is filled from the
+// packed words instead of the raw row: one 4-byte load carries 16 bases,
+// decoded to 'A', 'C', 'G', 'T', then each block walks its row's E
+// entries (in any order) and writes the raw byte of those inside its tile.
+// Everything after the tile is kernel 2's code, so the two give the same
+// bits on every byte value ('a' hashes as 'A': the forward class comes
+// from the seed table, the reverse from c & 7).  The JAX route classes an
+// exception as "no forward seed" (scan_conv.py:130), which bytes 1, 3, 4
+// and 7 are not; the raw byte avoids that.  What bounds it is kernel 2's
+// bound, the random L2 requests of the probes: the decode and the E
+// entries per block add ~1% to them.  Where kernel 2 takes its second form
+// (k past ~360), kernel 8 decodes the rows into device scratch [B, L]
+// (gp_scan_packed2_scratch_bytes), writes the exceptions there and runs
+// that second form on it.
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 #include "nthash_roll.cuh"
@@ -199,6 +223,103 @@ gp_scan_kernel(const uint32_t* __restrict__ words, uint64_t bits, int h, int k,
   }
 }
 
+// The four bases of a packed byte as four code bytes (little-endian).
+__device__ __forceinline__ uint32_t gp_decode4(uint32_t packed) {
+  uint32_t out = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t c = (packed >> (2 * q)) & 3u;
+    out |= ((0x54474341u >> (8 * c)) & 0xffu) << (8 * q);  // "ACGT"[c]
+  }
+  return out;
+}
+
+// Kernel 8 (smem form): kernel 2 with its tile filled from the packed row.
+template <bool kPow2>
+__global__ void __launch_bounds__(kScanThreads)
+gp_scan2_kernel(const uint32_t* __restrict__ words, uint64_t bits, int h, int k,
+                const uint8_t* __restrict__ packed, int64_t B, int64_t L, int64_t P,
+                const int64_t* __restrict__ exc_idx, const uint8_t* __restrict__ exc_byte,
+                int64_t E, int64_t nw, int64_t nbytes, const uint64_t* __restrict__ tf,
+                const uint64_t* __restrict__ tr, const uint8_t* __restrict__ fclass,
+                uint64_t kmul, uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t s_dyn[];
+  __shared__ GpRollTables s_r;
+
+  const int64_t row = blockIdx.y;
+  const int64_t w0 = (int64_t)blockIdx.x * kScanTile;
+  const int64_t w = w0 + (int64_t)threadIdx.x * kRun;
+  const GpTableRef t = gp_table_ref(s_dyn, k);
+  uint8_t* s_raw = s_dyn + gp_table_bytes(k);
+  gp_load_window_tables(t, k, tf, tr, fclass);
+  // bytes [w0, w0 + tile) of the row from its packed bytes [w0 / 4, ...):
+  // whole 4-byte words, the first at offset `a` < 4 before them (a packed
+  // row starts at any byte), so the tile's byte 0 lands at s_raw[4a].  As
+  // in kernel 2, what lies past the row's end is read only by windows >=
+  // nw, never probed.
+  const int64_t tile = kScanTile + k - 1;
+  const uint8_t* src = packed + row * P + (w0 >> 2);
+  const int a = (int)((uintptr_t)src & 3);
+  const uint8_t* lo = packed;
+  const uint8_t* hi = packed + B * P;
+  const int nwords = (int)((a + (tile + 3) / 4 + 3) / 4);
+  for (int c = threadIdx.x; c < nwords; c += kScanThreads) {
+    const uint8_t* g = src - a + 4 * (int64_t)c;
+    uint32_t v = 0;
+    if (g >= lo && g + 4 <= hi) {
+      v = __ldg((const uint32_t*)g);
+    } else {
+      for (int i = 0; i < 4; ++i)
+        if (g + i >= lo && g + i < hi) v |= (uint32_t)g[i] << (8 * i);
+    }
+    uint4 bases;
+    bases.x = gp_decode4(v & 0xffu);
+    bases.y = gp_decode4((v >> 8) & 0xffu);
+    bases.z = gp_decode4((v >> 16) & 0xffu);
+    bases.w = gp_decode4(v >> 24);
+    *(uint4*)(s_raw + 16 * c) = bases;
+  }
+  __syncthreads();
+  // the row's exceptions inside the tile, as raw bytes (padding: idx >= L)
+  uint8_t* s_tile = s_raw + 4 * a;
+  const int64_t* ei = exc_idx + row * E;
+  const uint8_t* eb = exc_byte + row * E;
+  for (int64_t e = threadIdx.x; e < E; e += kScanThreads) {
+    const uint64_t p = (uint64_t)__ldg((const long long*)ei + e);
+    if (p < (uint64_t)L && p >= (uint64_t)w0 && p - (uint64_t)w0 < (uint64_t)tile)
+      s_tile[p - (uint64_t)w0] = __ldg(eb + e);
+  }
+  gp_load_roll_tables(s_r, t, k);
+  __syncthreads();
+  if (w >= nw) return;
+  const uint8_t* s = s_tile + threadIdx.x * kRun;
+  scan_run<kPow2>(words, bits, h, k, w, nw, nbytes, row, kmul, t, s_r,
+                  [s](int j) { return s[j]; }, out);
+}
+
+// Kernel 8's second form, step 1: every packed byte of [B, P] to its (up
+// to) four code bytes of scratch [B, L].
+__global__ void gp_unpack2_kernel(const uint8_t* __restrict__ packed, int64_t B, int64_t L,
+                                  int64_t P, uint8_t* __restrict__ codes) {
+  const int64_t n = B * P;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t row = i / P, j = 4 * (i % P);
+    const uint32_t v = gp_decode4(packed[i]);
+    for (int q = 0; q < 4 && j + q < L; ++q) codes[row * L + j + q] = (uint8_t)(v >> (8 * q));
+  }
+}
+
+// Step 2: the exceptions' raw bytes over the decoded rows.
+__global__ void gp_exceptions_kernel(const int64_t* __restrict__ exc_idx,
+                                     const uint8_t* __restrict__ exc_byte, int64_t B,
+                                     int64_t E, int64_t L, uint8_t* __restrict__ codes) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * E) return;
+  const uint64_t p = (uint64_t)exc_idx[i];
+  if (p < (uint64_t)L) codes[(i / E) * L + (int64_t)p] = exc_byte[i];
+}
+
 }  // namespace
 
 // codes: uint8[B, L] row-major (device); words: uint32[ceil(bits/32)];
@@ -224,5 +345,56 @@ extern "C" int gp_scan_present_packed(const void* words, uint64_t bits, int h,
       (const uint32_t*)words, bits, h, k, (const uint8_t*)codes, B, L, nw, nbytes,
       (const uint64_t*)tf, (const uint64_t*)tr, (const uint8_t*)fclass, kmul,
       (uint8_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// Kernel 8's device scratch at (k, B, L): 0 where its smem form runs, else
+// the decoded rows, B * L bytes.
+extern "C" int64_t gp_scan_packed2_scratch_bytes(int k, int64_t B, int64_t L) {
+  const bool in_smem = scan_smem_bytes(k) + (int64_t)sizeof(GpRollTables) <= kGpSmemBytes;
+  return in_smem ? 0 : B * L;
+}
+
+// packed: uint8[B, P] row-major (device), P >= ceil(L/4); exc_idx: int64[B,
+// E]; exc_byte: uint8[B, E]; scratch: gp_scan_packed2_scratch_bytes bytes
+// (may be null where that is 0); the rest as gp_scan_present_packed.
+// Launches on `stream`; returns cudaGetLastError().
+extern "C" int gp_scan_present_packed2(const void* words, uint64_t bits, int h, int k,
+                                       const void* packed, int64_t B, int64_t L,
+                                       int64_t P, const void* exc_idx,
+                                       const void* exc_byte, int64_t E, const void* tf,
+                                       const void* tr, const void* fclass, uint64_t kmul,
+                                       void* scratch, void* out, void* stream) {
+  if (k < 1 || h < 1 || bits == 0 || B > 65535 || E < 0 || P * 4 < L)
+    return (int)cudaErrorInvalidValue;
+  const int64_t nw = L - k + 1;
+  if (nw <= 0 || B <= 0) return 0;
+  const int64_t nbytes = (nw + 7) / 8;
+  const bool pow2 = (bits & (bits - 1)) == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (gp_scan_packed2_scratch_bytes(k, B, L) == 0) {
+    dim3 grid((unsigned)((nw + kScanTile - 1) / kScanTile), (unsigned)B);
+    auto kernel = pow2 ? gp_scan2_kernel<true> : gp_scan2_kernel<false>;
+    kernel<<<grid, kScanThreads, (size_t)scan_smem_bytes(k), s>>>(
+        (const uint32_t*)words, bits, h, k, (const uint8_t*)packed, B, L, P,
+        (const int64_t*)exc_idx, (const uint8_t*)exc_byte, E, nw, nbytes,
+        (const uint64_t*)tf, (const uint64_t*)tr, (const uint8_t*)fclass, kmul,
+        (uint8_t*)out);
+    return (int)cudaGetLastError();
+  }
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  uint8_t* codes = (uint8_t*)scratch;
+  const int64_t n = B * P;
+  gp_unpack2_kernel<<<(unsigned)std::min<int64_t>((n + 255) / 256, 4096), 256, 0, s>>>(
+      (const uint8_t*)packed, B, L, P, codes);
+  if (B * E > 0)
+    gp_exceptions_kernel<<<(unsigned)((B * E + 255) / 256), 256, 0, s>>>(
+        (const int64_t*)exc_idx, (const uint8_t*)exc_byte, B, E, L, codes);
+  dim3 grid((unsigned)((nw + kScanTile - 1) / kScanTile), (unsigned)B);
+  auto kernel = pow2 ? gp_scan_kernel<true, false> : gp_scan_kernel<false, false>;
+  kernel<<<grid, kScanThreads, 0, s>>>((const uint32_t*)words, bits, h, k, codes, B, L,
+                                       nw, nbytes, (const uint64_t*)tf,
+                                       (const uint64_t*)tr, (const uint8_t*)fclass, kmul,
+                                       (uint8_t*)out);
   return (int)cudaGetLastError();
 }

@@ -182,12 +182,15 @@ def bf_contains(bf, hashes: np.ndarray) -> np.ndarray:
     return out.astype(bool)
 
 
-def pack2(codes: np.ndarray, exc_cap: int = 64):
+def pack2(codes: np.ndarray, exc_cap: int = 64, out=None):
     """2-bit pack a byte sequence for the device-scan transfer (gp_pack2).
 
     Returns (packed u8[ceil(n/4)], exc_pos i64[m], exc_byte u8[m]) or None
     when the sequence holds more than exc_cap non-ACGT bytes (caller sends
-    raw bytes instead)."""
+    raw bytes instead).  With `out` = (packed, exc_pos, exc_byte), writable
+    contiguous arrays of at least ceil(n/4), exc_cap and exc_cap entries
+    (u8, i64, u8), the sequence is packed into them (e.g. a scan pipe's
+    pinned slot) and the result is views of them."""
     L = lib()
     if not hasattr(L, "gp_pack2_configured"):
         L.gp_pack2.argtypes = [
@@ -200,9 +203,16 @@ def pack2(codes: np.ndarray, exc_cap: int = 64):
         L.gp_pack2_configured = True
     codes = np.ascontiguousarray(codes, np.uint8)
     n = len(codes)
-    packed = np.zeros((n + 3) // 4, np.uint8)
-    exc_pos = np.zeros(exc_cap, np.int64)
-    exc_byte = np.zeros(exc_cap, np.uint8)
+    if out is None:
+        out = (np.empty((n + 3) // 4, np.uint8), np.empty(exc_cap, np.int64),
+               np.empty(exc_cap, np.uint8))
+    packed, exc_pos, exc_byte = out
+    for a, dtype, size in ((packed, np.uint8, (n + 3) // 4),
+                           (exc_pos, np.int64, exc_cap), (exc_byte, np.uint8, exc_cap)):
+        if (a.dtype != dtype or a.ndim != 1 or len(a) < size
+                or not a.flags.c_contiguous or not a.flags.writeable):
+            raise ValueError(f"pack2: an output needs {size} writable contiguous "
+                             f"{np.dtype(dtype)} entries")
     m = L.gp_pack2(
         _u8ptr(codes), n, _u8ptr(packed),
         exc_pos.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
@@ -210,7 +220,7 @@ def pack2(codes: np.ndarray, exc_cap: int = 64):
     )
     if m < 0:
         return None
-    return packed, exc_pos[:m], exc_byte[:m]
+    return packed[: (n + 3) // 4], exc_pos[:m], exc_byte[:m]
 
 
 def extend4(kmer: bytes, hash_num: int, bf, forward: bool) -> int:

@@ -1,4 +1,5 @@
-// Port counterpart: goldpolish_tpu/native/gp_native.cpp, copied unchanged.
+// Port counterpart: goldpolish_tpu/native/gp_native.cpp, copied unchanged
+// but for gp_pack2, which writes whole packed bytes (no zeroed output).
 // gp_native — native host kernels for goldpolish_tpu_torch.
 //
 // The reference keeps its data-plane hot loops native (SeqIndex scan:
@@ -18,6 +19,7 @@
 // Build: see build.py (g++ -O3 -shared -fPIC -fopenmp).
 
 #include <algorithm>
+#include <array>
 #include <cstdint>
 #include <cstdlib>
 #include <cstdio>
@@ -2126,32 +2128,38 @@ int gp_polish_contig(
 // ops/nthash.py seed tables); every other byte is recorded as an exception
 // (position + raw byte) that the device scatters back into its one-hot
 // channels.  Returns the exception count, or -1 if it exceeds exc_cap
-// (caller falls back to the raw-byte transfer).  packed must arrive zeroed
-// with capacity ceil(n/4).
+// (caller falls back to the raw-byte transfer).  packed has capacity
+// ceil(n/4); every byte of it is written (whole bytes of four bases, so it
+// need not arrive zeroed, and a pinned slot is packed in place).
 int64_t gp_pack2(const uint8_t* seq, int64_t n, uint8_t* packed,
                  int64_t* exc_pos, uint8_t* exc_byte, int64_t exc_cap) {
-  static uint8_t cls_tab[256];
-  static bool init = false;
-  if (!init) {
-    std::memset(cls_tab, 255, sizeof(cls_tab));
+  // a function-local static: initialised once, safely across threads
+  static const std::array<uint8_t, 256> cls_tab = [] {
+    std::array<uint8_t, 256> t;
+    t.fill(255);
     const char* b = "ACGT";
     for (int i = 0; i < 4; i++) {
-      cls_tab[(uint8_t)b[i]] = (uint8_t)i;
-      cls_tab[(uint8_t)(b[i] + 32)] = (uint8_t)i;
+      t[(uint8_t)b[i]] = (uint8_t)i;
+      t[(uint8_t)(b[i] + 32)] = (uint8_t)i;
     }
-    init = true;
-  }
+    return t;
+  }();
   int64_t m = 0;
-  for (int64_t i = 0; i < n; i++) {
-    uint8_t cls = cls_tab[seq[i]];
-    if (cls == 255) {
-      if (m >= exc_cap) return -1;
-      exc_pos[m] = i;
-      exc_byte[m] = seq[i];
-      m++;
-      cls = 0;
+  for (int64_t i0 = 0; i0 < n; i0 += 4) {
+    const int64_t end = std::min<int64_t>(n, i0 + 4);
+    uint8_t out = 0;
+    for (int64_t i = i0; i < end; i++) {
+      uint8_t cls = cls_tab[seq[i]];
+      if (cls == 255) {
+        if (m >= exc_cap) return -1;
+        exc_pos[m] = i;
+        exc_byte[m] = seq[i];
+        m++;
+        cls = 0;
+      }
+      out = (uint8_t)(out | (cls << ((i & 3) * 2)));
     }
-    packed[i >> 2] = (uint8_t)(packed[i >> 2] | (cls << ((i & 3) * 2)));
+    packed[i0 >> 2] = out;
   }
   return m;
 }

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from . import nthash_device as ntd
+from .cuda_build import to_device
 from .scan_conv import bit_index, probe_bit_reference, scan_present_packed
 
 MAX_ROWS = 65535  # kernel 2's rows per call (csrc/scan_conv.cu: grid.y)
@@ -31,9 +32,8 @@ MAX_ROWS = 65535  # kernel 2's rows per call (csrc/scan_conv.cu: grid.y)
 
 def to_device_words(bf, device: str) -> torch.Tensor:
     """Upload a host BloomFilter's bit array as int32 words (the bits of its
-    little-endian uint32 words) to `device`."""
-    words = np.ascontiguousarray(bf.words_u32()).view(np.int32)
-    return torch.from_numpy(words.copy()).to(device)
+    little-endian uint32 words) to `device`, through pinned memory."""
+    return to_device(np.ascontiguousarray(bf.words_u32()).view(np.int32), device)
 
 
 def probe_words(words: torch.Tensor, bits: int, hashes: torch.Tensor) -> torch.Tensor:

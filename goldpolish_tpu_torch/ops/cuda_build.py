@@ -120,6 +120,12 @@ def lib() -> ctypes.CDLL:
             vp, u64, i32, i32, vp, i64, i64, vp, vp, vp, u64, vp, vp,
         ]
         L.gp_scan_present_packed.restype = i32
+        L.gp_scan_present_packed2.argtypes = [
+            vp, u64, i32, i32, vp, i64, i64, i64, vp, vp, i64, vp, vp, vp, u64, vp, vp, vp,
+        ]
+        L.gp_scan_present_packed2.restype = i32
+        L.gp_scan_packed2_scratch_bytes.argtypes = [i32, i64, i64]
+        L.gp_scan_packed2_scratch_bytes.restype = i64
         L.gp_dbg_bfs.argtypes = [
             vp, u64, i32, i32, u64, vp, vp, vp, vp, vp, i64, i32, i32,
             vp, vp, vp, vp, vp,
@@ -167,11 +173,12 @@ def to_device(a, device):
     pinned host memory and copied on the current stream (no wait)."""
     import torch
 
-    src = torch.from_numpy(np.array(a))  # a copy: `a` may be read-only
+    a = np.asarray(a)
     if torch.device(device).type == "cpu":
-        return src
-    pinned = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
-    pinned.copy_(src)
+        return torch.from_numpy(a.copy())  # a copy: `a` may be read-only
+    dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+    pinned = torch.empty(a.shape, dtype=dtype, pin_memory=True)
+    pinned.numpy()[...] = a  # the one host copy
     return pinned.to(device, non_blocking=True)
 
 

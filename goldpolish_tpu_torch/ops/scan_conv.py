@@ -35,8 +35,21 @@ does (K9: `_sharded_scan` :333-375 and the eval's shard_map :399-423): the
 filter is replicated and each shard runs kernel 2 or kernel 4 on its own
 rows.  Its shards are the GPUs of this process, never those of other hosts
 (the JAX scanner's mesh spans `jax.devices()`, every host's in a
-multi-process run).  Left out (ROADMAP.md): the 2-bit packed transfer
-(`scan_packed2` :498-527).
+multi-process run).
+
+`scan_present_packed2` (kernel 8, csrc/scan_conv.cu) is the same scan over
+the 2-bit packed transfer of the JAX package (scan_present_packed2_gather
+:206 and scan_present_packed2_mxu :247, `_classes_from_packed` :104, the
+scanner's `scan_packed2` :498-527 and its "scan2" shard_map :357-366): base
+i of a row in bits 2 * (i & 3) of byte i >> 2 (A, C, G, T = 0-3, lowercase
+packed as uppercase), plus per row the positions and raw bytes of every
+other byte (native.pack2); an entry whose position is not in [0, L) is
+padding.  The port writes the raw bytes back before hashing, so the packed
+route gives the raw route's bits on every byte value, the seeded bytes 1,
+3, 4 and 7 too (the JAX route classes every exception as seedless,
+scan_conv.py:130).  `scan_present_packed2_reference` is its plain version.
+The filter's words go to each device through pinned memory
+(cuda_build.to_device).
 """
 
 from __future__ import annotations
@@ -49,7 +62,7 @@ import torch
 
 from . import nthash as nt
 from . import u64
-from .cuda_build import LaunchCounter, check, lib, require_cuda
+from .cuda_build import LaunchCounter, check, lib, require_cuda, to_device
 
 NO_CLASS = 4  # forward class of a byte without a seed
 
@@ -143,10 +156,8 @@ def probe_full_reference(words64: torch.Tensor, bits: int, base: torch.Tensor,
     return pres
 
 
-def scan_present_packed_reference(words: torch.Tensor, bits: int, h: int, k: int,
-                                  codes: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of the fused scan (any device)."""
-    scan_present_packed_reference.calls.add()
+def _scan_reference(words: torch.Tensor, bits: int, h: int, k: int,
+                    codes: torch.Tensor) -> torch.Tensor:
     b, length = codes.shape
     if length - k + 1 <= 0:
         return torch.zeros(b, 0, dtype=torch.uint8, device=codes.device)
@@ -154,7 +165,46 @@ def scan_present_packed_reference(words: torch.Tensor, bits: int, h: int, k: int
     return pack_bits(probe_full_reference(words.to(torch.int64), bits, fh + rh, k, h))
 
 
+def scan_present_packed_reference(words: torch.Tensor, bits: int, h: int, k: int,
+                                  codes: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the fused scan (any device)."""
+    scan_present_packed_reference.calls.add()
+    return _scan_reference(words, bits, h, k, codes)
+
+
 scan_present_packed_reference.calls = LaunchCounter()
+
+# the code byte of each 2-bit class: A, C, G, T
+_ACGT = np.frombuffer(b"ACGT", np.uint8)
+
+
+def unpack2_reference(L: int, packed: torch.Tensor, exc_idx: torch.Tensor,
+                      exc_byte: torch.Tensor) -> torch.Tensor:
+    """The code bytes uint8 [B, L] of a 2-bit packed call: the bases of
+    packed uint8 [B, >= ceil(L/4)] as 'A', 'C', 'G', 'T', then the raw
+    byte of each exception whose position lies in [0, L)."""
+    b = packed.shape[0]
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=packed.device)
+    cls = ((packed[..., None] >> shifts) & 3).reshape(b, -1)[:, :L]
+    codes = torch.from_numpy(_ACGT.copy()).to(packed.device)[cls.to(torch.int64)]
+    idx = exc_idx.to(torch.int64)
+    keep = (idx >= 0) & (idx < L)
+    rows = torch.arange(b, device=packed.device)[:, None].expand_as(idx)
+    codes[rows[keep], idx[keep]] = exc_byte[keep].to(torch.uint8)
+    return codes
+
+
+def scan_present_packed2_reference(words: torch.Tensor, bits: int, h: int, k: int,
+                                   L: int, packed: torch.Tensor, exc_idx: torch.Tensor,
+                                   exc_byte: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of kernel 8 (any device): the rows decoded
+    (unpack2_reference), then the plain scan."""
+    scan_present_packed2_reference.calls.add()
+    return _scan_reference(words, bits, h, k, unpack2_reference(L, packed, exc_idx,
+                                                                exc_byte))
+
+
+scan_present_packed2_reference.calls = LaunchCounter()
 
 
 def scan_present_packed(words: torch.Tensor, bits: int, h: int, k: int,
@@ -197,6 +247,65 @@ def scan_present_packed(words: torch.Tensor, bits: int, h: int, k: int,
 
 
 scan_present_packed.launches = LaunchCounter()
+
+
+def scan_present_packed2(words: torch.Tensor, bits: int, h: int, k: int, L: int,
+                         packed: torch.Tensor, exc_idx: torch.Tensor,
+                         exc_byte: torch.Tensor) -> torch.Tensor:
+    """The scan over a 2-bit packed call (the argument order of the JAX
+    scan_present_packed2_gather): packed uint8 [B, ceil(L/4)] (wider rows
+    are read up to L), exc_idx int64 [B, E] and exc_byte uint8 [B, E] the
+    positions and raw bytes of the non-ACGT bytes (positions outside [0, L)
+    are padding; no position twice in a row) -> packed presence uint8
+    [B, ceil((L-k+1)/8)], the raw scan's bits of the decoded rows.
+
+    CPU tensors run the plain version; CUDA tensors launch kernel 8 on the
+    current stream."""
+    if packed.dim() != 2 or exc_idx.dim() != 2 or exc_byte.shape != exc_idx.shape \
+            or exc_idx.shape[0] != packed.shape[0]:
+        raise ValueError("packed must be [B, P], exc_idx and exc_byte [B, E]")
+    if packed.shape[1] * 4 < L:
+        raise ValueError(f"packed rows of {packed.shape[1]} bytes hold fewer than L={L} bases")
+    if k < 1 or h < 1 or bits < 1 or bits >= (1 << 62):
+        raise ValueError(f"unsupported scan parameters k={k} h={h} bits={bits}")
+    if packed.device.type == "cpu":
+        return scan_present_packed2_reference(words, bits, h, k, L, packed, exc_idx,
+                                              exc_byte)
+    require_cuda(packed, "scan_present_packed2")
+    if not all(t.device == packed.device for t in (words, exc_idx, exc_byte)):
+        raise ValueError("words, packed and the exceptions must lie on the same device")
+    if (packed.dtype != torch.uint8 or exc_byte.dtype != torch.uint8
+            or exc_idx.dtype != torch.int64 or words.dtype != torch.int32):
+        raise TypeError("scan_present_packed2 takes uint8 packed rows and exception "
+                        "bytes, int64 exception positions and int32 words")
+    if words.numel() * 32 < bits:
+        raise ValueError("words hold fewer than `bits` bits")
+    if packed.shape[0] > 65535:
+        raise ValueError("at most 65535 rows per call")
+    packed, exc_idx, exc_byte, words = (t.contiguous()
+                                        for t in (packed, exc_idx, exc_byte, words))
+    b, p = packed.shape
+    nw = max(0, L - k + 1)
+    out = torch.empty(b, (nw + 7) // 8, dtype=torch.uint8, device=packed.device)
+    if nw == 0 or b == 0:
+        return out
+    tf, tr, fclass = _device_tables(k, str(packed.device))
+    L_ = lib()
+    n_scratch = L_.gp_scan_packed2_scratch_bytes(k, b, L)
+    scratch = (torch.empty(n_scratch, dtype=torch.uint8, device=packed.device)
+               if n_scratch else None)
+    rc = L_.gp_scan_present_packed2(
+        words.data_ptr(), bits, h, k, packed.data_ptr(), b, L, p, exc_idx.data_ptr(),
+        exc_byte.data_ptr(), exc_idx.shape[1], tf.data_ptr(), tr.data_ptr(),
+        fclass.data_ptr(), _kmul(k), scratch.data_ptr() if scratch is not None else None,
+        out.data_ptr(), torch.cuda.current_stream(packed.device).cuda_stream,
+    )
+    check(rc, "gp_scan_present_packed2")
+    scan_present_packed2.launches.add()
+    return out
+
+
+scan_present_packed2.launches = LaunchCounter()
 
 
 def shard_devices(device: str, devices=None) -> list[torch.device]:
@@ -258,10 +367,10 @@ class DeviceScanner:
         self.device = self.devices[0]
         self.bits = bits
         self.h = h
-        words = torch.from_numpy(
-            np.ascontiguousarray(words_u32, dtype="<u4").view(np.int32).copy())
-        # the filter replicated: one copy per distinct device
-        copies = {d: words.to(d) for d in dict.fromkeys(self.devices)}
+        words = np.ascontiguousarray(words_u32, dtype="<u4").view(np.int32)
+        # the filter replicated: one copy per distinct device, each through
+        # pinned memory
+        copies = {d: to_device(words, d) for d in dict.fromkeys(self.devices)}
         self._shard_words = [copies[d] for d in self.devices]
         self._evals = None
 
@@ -303,6 +412,12 @@ class DeviceScanner:
         asynchronously on the current stream of that device."""
         return scan_present_packed(self._shard_words[s], self.bits, self.h, k, codes)
 
+    def scan2_shard(self, s: int, packed: torch.Tensor, exc_idx: torch.Tensor,
+                    exc_byte: torch.Tensor, k: int, L: int) -> torch.Tensor:
+        """Kernel 8 on shard s's packed rows (on its device), as scan_shard."""
+        return scan_present_packed2(self._shard_words[s], self.bits, self.h, k, L,
+                                    packed, exc_idx, exc_byte)
+
     def eval_shard(self, s: int, codes: torch.Tensor, k: int):
         """The fused eval (kernel 4) on shard s's rows, as scan_shard."""
         if self._evals is None:
@@ -312,9 +427,10 @@ class DeviceScanner:
             raise ValueError(f"eval armed for k={fused.cfg.k}, called with k={k}")
         return fused(self._shard_words[s], codes)
 
-    def _as_rows(self, codes) -> torch.Tensor:
+    @staticmethod
+    def _as_rows(codes, dtype=np.uint8) -> torch.Tensor:
         if isinstance(codes, np.ndarray):
-            codes = torch.from_numpy(np.ascontiguousarray(codes, np.uint8))
+            codes = torch.from_numpy(np.ascontiguousarray(codes, dtype))
         if codes.dim() == 1:
             codes = codes[None, :]
         return codes
@@ -380,6 +496,30 @@ class DeviceScanner:
         order.  On CUDA the kernel runs asynchronously on the current
         stream of each device."""
         b, outs = self._run_shards(codes, k, fused=False)
+        if self.n_shards == 1:
+            return outs[0]
+        return torch.cat([o.to(self.device) for o in outs])[:b]
+
+    def scan_packed2(self, packed, exc_idx, exc_byte, k: int, L: int) -> torch.Tensor:
+        """The 2-bit packed variant of scan_packed (the JAX scanner's
+        :498-527): packed uint8 [B, ceil(L/4)] with the exceptions exc_idx
+        int64 [B, E] and exc_byte uint8 [B, E] (numpy or tensors) -> packed
+        presence uint8 [B, ceil((L-k+1)/8)] on the first device.  Pad rows
+        are packed 'A' with padding exceptions (position L), as the JAX
+        scanner pads them; each shard runs kernel 8 on its rows."""
+        packed = self._as_rows(packed)
+        exc_idx, exc_byte = self._as_rows(exc_idx, np.int64), self._as_rows(exc_byte)
+        b = packed.shape[0]
+        pad = self.padded_rows(b) - b
+        if pad:
+            packed = torch.cat([packed, packed.new_zeros(pad, packed.shape[1])])
+            exc_idx = torch.cat([exc_idx, exc_idx.new_full((pad, exc_idx.shape[1]), L)])
+            exc_byte = torch.cat([exc_byte, exc_byte.new_zeros(pad, exc_byte.shape[1])])
+        outs = []
+        for s, (dev, *parts) in enumerate(zip(self.devices, *(
+                self.split_rows(t) for t in (packed, exc_idx, exc_byte)))):
+            with on_device(dev):
+                outs.append(self.scan2_shard(s, *(t.to(dev) for t in parts), k, L))
         if self.n_shards == 1:
             return outs[0]
         return torch.cat([o.to(self.device) for o in outs])[:b]

@@ -294,6 +294,7 @@ def kernel_launches() -> dict:
     from ..ops import bloom_sort, dbg_extend, scan_conv, scan_eval, siteeval_device
 
     return {"scan_present_packed": scan_conv.scan_present_packed.launches.value,
+            "scan_present_packed2": scan_conv.scan_present_packed2.launches.value,
             "scan_eval": scan_eval.scan_eval.launches.value,
             "site_eval": siteeval_device.site_eval.launches.value,
             # kernel 7 at any D (dbg_extend4 and dbg_extend_chain share it)

@@ -38,8 +38,16 @@ shard's stream before its event, and the generator yields (job_id, present,
 tables), the tables being the interior sites of the job's segments
 (window-relative, the drop rule of the JAX pipe, scanpipe.py:259-291).
 With several shards, merge_shards joins a call's outputs as the JAX
-pipe's mesh merge does (:223-248).  The 2-bit packed transfer (:136-153)
-is not ported (ROADMAP.md); the raw transfer gives the same bits.
+pipe's mesh merge does (:223-248).
+
+The 2-bit packed transfer (the JAX pipe's :75-83, :136-153): when the
+native packer loads, a call of the plain scan sends each row 2-bit packed
+(native.pack2, about a quarter of the bytes) with up to EXC_BUCKET = 256
+exceptions per row, and runs kernel 8 (scanner.scan2_shard) on it.  A call
+with a row of more exceptions goes raw, as does every call in eval mode,
+as in the JAX pipe.  The rows are packed from the call's raw slot into the
+slot's pinned packed rows and exception arrays; a pad row (the rows that
+only pad a call to the shard count) is packed as 'A' with no exception.
 
 Replaces the reference's one-rolling-probe-per-position inner loop
 (reference: subprojects/ntedit/ntedit.cpp:1414-1486) as the production
@@ -123,6 +131,8 @@ class ScanPipe:
     background.
     """
 
+    EXC_BUCKET = 256  # per-row non-ACGT exception slots in the packed path
+
     def __init__(self, scanner, k: int, row_windows: int | None = None,
                  rows: int = ROWS, depth: int = DEPTH):
         self.scanner = scanner
@@ -142,9 +152,20 @@ class ScanPipe:
         self._cuda = scanner.device.type == "cuda"
         self._streams = ([torch.cuda.Stream(d) for d in scanner.devices]
                          if self._cuda else [])
-        # per slot: pinned codes, then each shard's pinned outputs
-        # (allocated at first use)
+        # 2-bit packed transfer when the native packer is available (calls
+        # with exception-dense rows, and eval mode, send raw bytes)
+        self._pack2 = None
+        try:
+            from .. import native
+
+            native.lib()
+            self._pack2 = native.pack2
+        except (native.NativeUnavailable, OSError):
+            pass
+        # per slot: pinned codes, pinned packed rows and exceptions, then
+        # each shard's pinned outputs (allocated at first use)
         self._codes: list = [None] * (self.depth + 2)
+        self._packs: list = [None] * (self.depth + 2)
         self._outs: list = [[None] * self.n_shards for _ in range(self.depth + 2)]
         # observability for adaptive placement: how often the consumer had
         # to wait on the device vs found the result already materialized
@@ -207,39 +228,79 @@ class ScanPipe:
                 s.w0 : s.w0 + s.nw + self.k - 1
             ]
 
-    def _launch(self, shard: int, codes) -> tuple:
+    def _pack_rows(self, buf: np.ndarray, rows: int, out: tuple) -> bool:
+        """Pack the call's rows `buf` [total, row_bytes] into `out` (packed
+        rows, exception positions and bytes, each [total, ...]); False when
+        a row holds more than EXC_BUCKET exceptions (the call goes raw)."""
+        packed, exc_idx, exc_byte = out
+        for r in range(rows):
+            res = self._pack2(buf[r], self.EXC_BUCKET,
+                              out=(packed[r], exc_idx[r], exc_byte[r]))
+            if res is None:
+                return False
+            exc_idx[r, len(res[1]):] = self.row_bytes  # padding entries
+        packed[rows:] = 0  # pad rows: 'A', no exception
+        exc_idx[rows:] = self.row_bytes
+        return True
+
+    def _pack_slot(self, i: int, total: int) -> tuple:
+        """Slot i's pinned packed rows and exception arrays, `total` rows
+        (the CPU path's are plain arrays of one call)."""
+        shapes = (((-(-self.row_bytes // 4)), torch.uint8),
+                  (self.EXC_BUCKET, torch.int64), (self.EXC_BUCKET, torch.uint8))
+        if not self._cuda:
+            return tuple(torch.empty((total, n), dtype=t) for n, t in shapes)
+        if self._packs[i] is None:
+            self._packs[i] = tuple(torch.empty((self.max_rows, n), dtype=t,
+                                               pin_memory=True) for n, t in shapes)
+        return tuple(t[:total] for t in self._packs[i])
+
+    def _inputs(self, i: int, buf: torch.Tensor, rows: int) -> tuple:
+        """The tensors a call sends: its packed rows and exceptions where
+        the packed transfer applies, else its raw rows."""
+        if self._pack2 is None or self.eval_mode:
+            return (buf,)
+        packs = self._pack_slot(i, buf.shape[0])
+        if self._pack_rows(buf.numpy(), rows, tuple(t.numpy() for t in packs)):
+            return packs
+        return (buf,)
+
+    def _launch(self, shard: int, inputs: tuple) -> tuple:
         if self.eval_mode:
             # fused scan + site eval (raw transfer; the tables' D2H dwarfs
             # what a packed transfer would save); the returned tuple also
             # carries the call's device scratch, which the pending call keeps
-            return self.scanner.eval_shard(shard, codes, self.k)
-        return (self.scanner.scan_shard(shard, codes, self.k),)
+            return self.scanner.eval_shard(shard, inputs[0], self.k)
+        if len(inputs) == 3:
+            return (self.scanner.scan2_shard(shard, *inputs, self.k, self.row_bytes),)
+        return (self.scanner.scan_shard(shard, inputs[0], self.k),)
 
     def _dispatch(self, jobs, call: _Call, call_idx: int) -> _Pending:
         rows = self._call_rows(call_idx)
         total = self.scanner.padded_rows(rows)
         self.calls += 1
+        i = call_idx % len(self._codes)
         if not self._cuda:
-            buf = np.empty((total, self.row_bytes), np.uint8)
-            self._fill(buf, jobs, call, rows)
-            parts = self.scanner.split_rows(torch.from_numpy(buf))
+            buf = torch.from_numpy(np.empty((total, self.row_bytes), np.uint8))
+            self._fill(buf.numpy(), jobs, call, rows)
+            parts = zip(*(self.scanner.split_rows(t) for t in self._inputs(i, buf, rows)))
             return _Pending([tuple(o.numpy() for o in self._launch(s, part))
                              for s, part in enumerate(parts)])
-        i = call_idx % len(self._codes)
         if self._codes[i] is None:
             self._codes[i] = torch.empty((self.max_rows, self.row_bytes),
                                          dtype=torch.uint8, pin_memory=True)
         codes_pin = self._codes[i][:total]
         self._fill(codes_pin.numpy(), jobs, call, rows)
+        inputs = self._inputs(i, codes_pin, rows)
         outs, events, keep = [], [], []
-        for s, (part, dev, stream) in enumerate(
-                zip(self.scanner.split_rows(codes_pin), self.scanner.devices,
-                    self._streams)):
+        for s, (dev, stream, *parts) in enumerate(zip(
+                self.scanner.devices, self._streams,
+                *(self.scanner.split_rows(t) for t in inputs))):
             # the filter words were uploaded on another stream
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
-                codes_dev = part.to(dev, non_blocking=True)
-                dev_outs = self._launch(s, codes_dev)
+                dev_in = tuple(p.to(dev, non_blocking=True) for p in parts)
+                dev_outs = self._launch(s, dev_in)
                 pins = self._out_pins(i, s, dev_outs)
                 for pin, out in zip(pins, dev_outs):
                     pin.copy_(out, non_blocking=True)
@@ -247,7 +308,7 @@ class ScanPipe:
                 event.record(stream)
             outs.append(tuple(p.numpy() for p in pins))
             events.append(event)
-            keep.append((codes_dev, dev_outs))
+            keep.append((dev_in, dev_outs))
         return _Pending(outs, events, keep)
 
     # -- execution --------------------------------------------------------

@@ -143,8 +143,10 @@ def test_extension_probe_and_device_dbg_match_jax(k):
 def test_editor_device_arms_match_jax_package(k, monkeypatch):
     """NtEditGPU(device="cpu") on the jax backend (kernels 2 and 6's plain
     versions, the Python walk) and on the hybrid backend with the device
-    scan forced (kernel 2's plain version; the native walk stops at k = 64,
-    so the two-phase engine walks) against NtEditTPU.  NtEditTPU runs its
+    scan forced (the eval is off past k = 64, so the scan pipe sends the
+    draft 2-bit packed, as the JAX pipe does: kernel 8's plain version; the
+    native walk stops at k = 64, so the two-phase engine walks) against
+    NtEditTPU.  NtEditTPU runs its
     numpy backend, which walks the same two-phase engine there and equals
     its jax backend (whose site eval test_site_eval_matches_jax holds the
     port's against) without a compile per shape bucket."""
@@ -168,10 +170,10 @@ def test_editor_device_arms_match_jax_package(k, monkeypatch):
     assert sd.eval_sites_device_reference.calls.value > evals  # > 16 hot sites
     assert got[:2] == want[:2]
     monkeypatch.setenv("GPTPU_FORCE_DEVICE_SCAN", "1")
-    scans = scan_conv.scan_present_packed_reference.calls.value
+    scans = scan_conv.scan_present_packed2_reference.calls.value
     got = NtEditGPU(ne.Config(**kw), bf, backend="hybrid",
                     device="cpu").polish_many([draft])[0]
-    assert scan_conv.scan_present_packed_reference.calls.value > scans
+    assert scan_conv.scan_present_packed2_reference.calls.value > scans
     assert got[:2] == want[:2]
 
 
