@@ -13,7 +13,12 @@ raises and the script exits non-zero without the result line.
             library (g++) from the checkout; seconds for each.
 3. kernels  each kernel against its plain torch version on the card, on the
             same inputs, required bit-equal (tolerance 0: integer hashing):
-            probe_lo32 on [2^21, 4] against a 4 MiB filter,
+            probe_lo32 on [2^21, 4] against p = 0.75 filters of 512 KiB,
+            1, 2 and 4 MiB (`kernel_probe_lo32`, with its L2 request rate
+            and a torch.take yardstick) and on an edge sweep
+            (`kernel_probe_lo32_edges`: n around the 4-row run and the
+            128-row warp segment, h = 1-8, four filter sizes, the tuples
+            aligned and at a 4-byte offset),
             scan_present_packed on [4, 2^19 + k - 1] rows, per k a row of
             mixed-alphabet codes against the p = 0.75 filter and a row of
             a mutated draft against a 4 MiB filter of its truth's k-mers
@@ -61,7 +66,11 @@ raises and the script exits non-zero without the result line.
             k = 400 and 1100 (its second form), exceptions at the rows'
             ends, in the halo and on both sides of a tile boundary, a row
             of exactly 256, the packed rows also at an odd byte offset;
-            and a filter's upload pageable against through pinned memory
+            on the pipe's call shapes [1, 2 and 4, 2^19 + k - 1] at k = 32
+            and 20 against filters of 512 KiB, 1, 2 and 4 MiB
+            (`kernel_scan_packed2_sizes`: a truth filter of a contig that
+            `-b 1` gives that size and a p = 0.75 filter, beside kernel 2
+            on the raw rows); and a filter's upload pageable against through pinned memory
             (`filter_upload`, 4 and 16 MiB).
             Times after
             warm-up: `ms` and `plain_ms` per call of back-to-back calls
@@ -92,7 +101,12 @@ raises and the script exits non-zero without the result line.
             the numpy arm on that input (`main_packed_route`: bytes
             equal, kernel 8 launched; the packed and raw calls of this arm
             and of the eval-off arm, whose gapped draft sends most calls
-            raw; each arm's packing seconds, from native.pack2 wrapped).
+            raw; each arm's packing seconds, from native.pack2 wrapped);
+            then `hybrid_eval_off_split`, the same arm on that draft with
+            each contig cut in two (8 contigs of ~580 kbp: `-b 1` builds 2
+            MiB filters), against numpy on that input
+            (`main_split_route`: bytes equal, every call packed, kernel 8
+            launched).
             Requires the first three outputs and the jax arm's
             byte-identical; the default arm: scan_eval launches > 0, walker
             table hits > 0; the eval-off arm: scan kernel launches > 0; the
@@ -347,108 +361,41 @@ def mixed_codes(rng, shape) -> np.ndarray:
     return codes
 
 
-# the filter sizes of the cluster forms' rows: `-b 1` sizes a batch's
-# filter from 512 KiB up, doubled until it holds 2 bytes a base
-# (bf_builder._batch_bf_bytes); a cluster holds at most 2 MiB
-FORM_SIZES = (512 << 10, 1 << 20, 2 << 20, 4 << 20)
-FORM_TURNS, FORM_REPS = 4, 5  # alternated turns of each form, launches a turn
+# the filter sizes of the size rows: `-b 1` sizes a batch's filter from 512
+# KiB up, doubled until it holds 2 bytes a base (bf_builder._batch_bf_bytes)
+FILTER_SIZES = (512 << 10, 1 << 20, 2 << 20, 4 << 20)
 
 
-def turns_device_ms(calls: dict) -> dict:
-    """Device ms per call of each labelled (fn, kernel-name part), the
-    labels run in alternated turns (a, b, c, c, b, a, ...) of FORM_REPS
-    calls inside one profiler session: {label: {"device_ms": mean of the
-    turns, "spread_ms": max - min of the turns' means}}, None where the
-    profiler recorded fewer events than launches."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for fn, _part in calls.values():
-        fn()
-    torch.cuda.synchronize()
-    labels = list(calls)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for turn in range(FORM_TURNS):
-            for label in labels if turn % 2 == 0 else labels[::-1]:
-                for _ in range(FORM_REPS):
-                    calls[label][0]()
-        torch.cuda.synchronize()
-    events = sorted(device_events(prof), key=lambda e: e[1])
-    out = {}
-    for label, (_fn, part) in calls.items():
-        durs = [d for name, _s, d in events if part in name]
-        if len(durs) != FORM_TURNS * FORM_REPS:
-            out[label] = None
-            continue
-        means = [sum(durs[t * FORM_REPS:(t + 1) * FORM_REPS]) / FORM_REPS / 1e6
-                 for t in range(FORM_TURNS)]
-        out[label] = {"device_ms": sum(means) / FORM_TURNS,
-                      "spread_ms": max(means) - min(means)}
-    return out
-
-
-def form_verdict(times: dict, rule: str) -> dict:
-    """Whether the cluster form beat the L2 form by more than the spread of
-    its repeats, and whether the rule picked the faster form, from one
-    turns_device_ms result (None where a form did not run or was not
-    timed)."""
-    l2, cl = times.get("l2"), times.get("cluster")
-    if not l2 or not cl:
-        return {"cluster_wins": None, "rule_picks_faster": None}
-    wins = cl["device_ms"] + cl["spread_ms"] < l2["device_ms"]
-    faster = "cluster" if cl["device_ms"] < l2["device_ms"] else "l2"
-    return {"cluster_wins": wins, "rule_picks_faster": rule == faster}
-
-
-def probe_form_rows(rng, card: str, lo, words_4mib) -> list[dict]:
+def probe_size_rows(rng, card: str, lo, words_4mib) -> list[dict]:
     """Kernel 1 on the [2^21, 4] lo32 rows `lo` against p = 0.75 filters of
-    each of FORM_SIZES (`words_4mib` at 4 MiB, the others drawn from rng): both forms (the cluster form where a cluster holds
-    the filter) against the plain version, bit-equal; both forms' device
-    time in alternated turns with their spread, the L2 requests of a row
-    stopping at its first clear bit and their rate, the cluster grid
-    (clusters launched and fitting at once), the library yardstick (one
-    torch.take of all 4 words a row, indices made beforehand), the rule's
-    form and its `ms` (CUDA events, host included), the plain version's."""
+    each of FILTER_SIZES (`words_4mib` at 4 MiB, the others drawn from rng),
+    bit-equal to its plain version: `device_ms`, the L2 requests of a row
+    stopping at its first clear bit and their rate, `ms` (CUDA events, host
+    included), the plain version's and the library yardstick's (one
+    torch.take of all 4 words a row, no early exit and no bit test, its
+    indices made beforehand; the port never calls it)."""
     import torch
 
     from goldpolish_tpu_torch.ops import bloom_probe as bp
 
     rows = []
-    for nbytes in FORM_SIZES:
+    for nbytes in FILTER_SIZES:
         bits = nbytes * 8
         words = (words_4mib if bits == FILTER_BITS
                  else torch.from_numpy(random_words(rng, bits)).to(lo.device))
-        rule = bp.probe_form(bits)
-        forms = ["l2"] + (["cluster"] if bp.cluster_shape(bits)[0] <= bp.CLUSTER_MAX_BLOCKS
-                          else [])
+        got = bp.probe_lo32(words, bits, lo)
         want = bp.probe_lo32_reference(words, bits, lo)
-        errs = {}
-        for form in forms:
-            got = bp.probe_lo32(words, bits, lo, _form=form)
-            errs[form] = int((got.int() - want.int()).abs().max().item())
-        idx = ((lo & (bits - 1)) >> 5).long()
-        times = turns_device_ms({
-            form: (functools.partial(bp.probe_lo32, words, bits, lo, _form=form),
-                   "gp_probe_lo32_cluster_kernel" if form == "cluster"
-                   else "gp_probe_lo32_kernel") for form in forms})
+        dev_ms = device_ms(lambda: bp.probe_lo32(words, bits, lo), 50)
         requests = probe_requests(words, bits, lo)
+        idx = ((lo & (bits - 1)) >> 5).long()
         row = {"name": "probe_lo32", "shape": list(lo.shape), "filter_bytes": nbytes,
-               "rule_form": rule, "forms": forms,
-               "equal": not any(errs.values()), "max_abs_err": max(errs.values()),
-               "max_abs_err_by_form": errs,
+               "equal": bool(torch.equal(got, want)), "max_abs_err": int_err(got, want),
                "present_share": float(want.float().mean().item()),
-               # the random L2 (or DSMEM) requests of a row stopping at its
-               # first clear bit, and their rate in each form
-               "l2_requests": requests,
-               **{f"{form}_{key}": (t[key] if t else None) for form, t in times.items()
-                  for key in ("device_ms", "spread_ms")},
-               **{f"{form}_requests_per_s": (requests / (t["device_ms"] * 1e-3) if t else None)
-                  for form, t in times.items()},
-               **form_verdict(times, rule),
-               **({"cluster_grid": bp.probe_cluster_grid(bits, lo.shape[0])}
-                  if "cluster" in forms else {}),
                "ms": time_ms(lambda: bp.probe_lo32(words, bits, lo), 50),
-               "device_ms": (times[rule] or {}).get("device_ms"),
+               "device_ms": dev_ms,
+               # the random L2 requests of a row stopping at its first clear bit
+               "l2_requests": requests,
+               "l2_requests_per_s": requests / (dev_ms * 1e-3) if dev_ms else None,
                "plain_ms": time_ms(lambda: bp.probe_lo32_reference(words, bits, lo), 5),
                "library_ms": time_ms(lambda: torch.take(words, idx), 20),
                "library_device_ms": device_ms(lambda: torch.take(words, idx), 20),
@@ -462,9 +409,9 @@ def probe_form_rows(rng, card: str, lo, words_4mib) -> list[dict]:
 
 def probe_edge_cases():
     """Every (n, h, nbytes, offset) of kernel 1's edge sweep: n around the
-    4-row run and the 128-row warp segment, h = 1-8, filters of 64 KiB,
-    512 KiB and 2 MiB (the cluster's capacity) and 4 MiB, the tuples at a
-    16-byte aligned address and at a 4-byte offset (scalar loads)."""
+    4-row run and the 128-row warp segment, h = 1-8, filters of 64 KiB, 512
+    KiB, 2 MiB and 4 MiB, the tuples at a 16-byte aligned address and at a
+    4-byte offset (one 4-byte load a hash)."""
     return [(n, h, nbytes, off) for n in (1, 3, 4, 5, 127, 128, 129, 8191, 65539)
             for h in range(1, 9) for nbytes in (64 << 10, 512 << 10, 2 << 20, 4 << 20)
             for off in (0, 1) if off == 0 or h == 4]
@@ -476,11 +423,9 @@ def edge_words(nbytes: int) -> np.ndarray:
     return random_words(np.random.default_rng([nbytes, 1]), nbytes * 8)
 
 
-def probe_edge_check(case) -> list[str]:
-    """Kernel 1 in every form that runs at the case's filter (and in the
-    rule's form) against the plain version on one edge case: the forms
-    checked; raises on a mismatch, and unless the cluster form raises
-    where no cluster holds the filter."""
+def probe_edge_check(case) -> None:
+    """Kernel 1 against its plain version on one edge case; raises on a
+    mismatch."""
     import torch
 
     from goldpolish_tpu_torch.ops import bloom_probe as bp
@@ -492,27 +437,16 @@ def probe_edge_check(case) -> list[str]:
     lo = torch.from_numpy(rng.integers(0, 2**32, n * h + off, dtype=np.uint64)
                           .astype(np.uint32).view(np.int32)).cuda()
     lo = lo[off:].view(n, h)
-    want = bp.probe_lo32_reference(words, bits, lo)
-    forms = ["l2", "cluster"] if bp.probe_form(bits) == "cluster" else ["l2"]
-    for form in [None, *forms]:
-        got = bp.probe_lo32(words, bits, lo, _form=form)
-        if not torch.equal(got, want):
-            raise AssertionError(f"probe_lo32 ({form}) disagrees with plain on edge {case}")
-    if "cluster" not in forms:
-        try:
-            bp.probe_lo32(words, bits, lo, _form="cluster")
-        except ValueError:
-            pass
-        else:
-            raise AssertionError(f"the cluster form ran where no cluster holds {case}")
-    return forms
+    if not torch.equal(bp.probe_lo32(words, bits, lo), bp.probe_lo32_reference(words, bits, lo)):
+        raise AssertionError(f"probe_lo32 disagrees with plain on edge {case}")
 
 
 def probe_edges() -> dict:
     """Every edge case of kernel 1 on the card (probe_edge_check)."""
     cases = probe_edge_cases()
-    cluster = sum("cluster" in probe_edge_check(case) for case in cases)
-    return {"cases": len(cases), "cluster_cases": cluster, "equal": True}
+    for case in cases:
+        probe_edge_check(case)
+    return {"cases": len(cases), "equal": True}
 
 
 def phase_kernels(rng, card: str):
@@ -522,7 +456,7 @@ def phase_kernels(rng, card: str):
     words = torch.from_numpy(random_words(rng, FILTER_BITS)).to(dev)
     lo = rng.integers(0, 2**32, (1 << 21, 4), dtype=np.uint64).astype(np.uint32)
     lo = torch.from_numpy(lo.view(np.int32)).to(dev)
-    probes = probe_form_rows(np.random.default_rng(SEED + 10), card, lo, words)
+    probes = probe_size_rows(np.random.default_rng(SEED + 10), card, lo, words)
     emit(phase="kernel_probe_lo32_edges", **probe_edges())
     scans = scan_rows(rng, words)
     emit(phase="kernel_scan_edges", **scan_edges())
@@ -852,94 +786,36 @@ def scan2_edge_case(nw: int, k: int, h: int, B: int, pow2: bool):
     return bf, codes, pack_call(codes, rng)
 
 
-def scan2_forms(bits: int, k: int) -> list[str]:
-    """The forms of kernel 8 that run at (bits, k): "l2", and "cluster"
-    where its rule would take it (scan_conv.scan2_cluster_smem)."""
-    from goldpolish_tpu_torch.ops import scan_conv as sc
-
-    return ["l2"] + (["cluster"] if sc.scan2_cluster_smem(k, bits) is not None else [])
-
-
-def scan2_check_forms(words, bits: int, h: int, k: int, codes, packed, idx, byt,
-                      what) -> list[str]:
-    """Kernel 8 in its rule's form and in every form that runs at (bits,
-    k), on the packed rows `packed` (a CUDA tensor, any alignment), against
-    the plain raw scan of `codes`; the cluster form must raise where it
-    does not run.  Raises on a mismatch; returns the forms checked."""
+def scan2_edge_check(case) -> None:
+    """Kernel 8 against the plain raw scan on one edge case, the packed
+    rows also at an odd byte offset of their buffer; raises on a
+    mismatch."""
     import torch
 
     from goldpolish_tpu_torch.ops import scan_conv as sc
-
-    words = torch.as_tensor(words)
-    want = sc.scan_present_packed_reference(words, bits, h, k, torch.from_numpy(codes))
-    idx, byt, words = (torch.as_tensor(a).cuda() for a in (idx, byt, words))
-    forms = scan2_forms(bits, k)
-    for form in [None, *forms]:
-        got = sc.scan_present_packed2(words, bits, h, k, codes.shape[1], packed, idx, byt,
-                                      _form=form)
-        if not torch.equal(got.cpu(), want):
-            raise AssertionError(f"kernel 8 ({form}) disagrees with plain on {what}")
-    if "cluster" not in forms:
-        try:
-            sc.scan_present_packed2(words, bits, h, k, codes.shape[1], packed, idx, byt,
-                                    _form="cluster")
-        except ValueError:
-            pass
-        else:
-            raise AssertionError(f"kernel 8's cluster form ran where it does not fit: {what}")
-    return forms
-
-
-def scan2_edge_check(case) -> list[str]:
-    """Kernel 8 in each form against the plain raw scan on one edge case,
-    the packed rows also at an odd byte offset of their buffer
-    (scan2_check_forms); returns the forms checked."""
-    import torch
 
     bf, codes, (packed, idx, byt) = scan2_edge_case(*case)
     _nw, k, h, _B, _pow2 = case
-    words = bf.words_u32().view(np.int32).copy()
+    words = torch.from_numpy(bf.words_u32().view(np.int32).copy())
+    want = sc.scan_present_packed_reference(words, int(bf.bits), h, k,
+                                            torch.from_numpy(codes))
     flat = torch.zeros(packed.size + 1, dtype=torch.uint8, device="cuda")
     flat[1:] = torch.from_numpy(packed).cuda().flatten()
+    idx, byt = torch.from_numpy(idx).cuda(), torch.from_numpy(byt).cuda()
     for dev_packed in (torch.from_numpy(packed).cuda(), flat[1:].view(packed.shape)):
-        forms = scan2_check_forms(words, int(bf.bits), h, k, codes, dev_packed, idx, byt,
-                                  f"edge {case}")
-    return forms
-
-
-# kernel 8's cluster capacity: a filter of exactly 2 MiB (16 blocks of 128
-# KiB), one word more (no cluster holds it), one word less (no power of
-# two: the word's block is a division), each at k = 32 and at k = 400 (past
-# the L2 form's shared-memory form, where the cluster form does not run)
-CAPACITY_BITS = ((2 << 20) * 8, (2 << 20) * 8 + 32, (2 << 20) * 8 - 32)
-
-
-def scan2_capacity_cases():
-    return [(bits, k) for bits in CAPACITY_BITS for k in (32, 400)]
-
-
-def scan2_capacity_check(case) -> list[str]:
-    """Kernel 8 on 3 rows of 4,097 windows with exceptions at the tile
-    edges against a p = 0.75 filter of `bits` bits (scan2_check_forms)."""
-    bits, k = case
-    rng = np.random.default_rng([bits, k, 9])
-    _bf, codes, (packed, idx, byt) = scan2_edge_case(4097, k, 4, 3, True)
-    import torch
-
-    return scan2_check_forms(random_words(rng, bits), bits, 4, k, codes,
-                             torch.from_numpy(packed).cuda(), idx, byt, f"capacity {case}")
+        got = sc.scan_present_packed2(words.cuda(), int(bf.bits), h, k, codes.shape[1],
+                                      dev_packed, idx, byt)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"kernel 8 disagrees with plain on edge {case}")
 
 
 def scan2_edges() -> dict:
-    """Every edge case of kernel 8 on the card, in each form
-    (scan2_edge_check), and its cluster capacity cases."""
+    """Every edge case of kernel 8 on the card (scan2_edge_check)."""
     cases = scan2_edge_cases()
-    cluster = sum("cluster" in scan2_edge_check(case) for case in cases)
-    capacity = {f"{bits}_bits_k{k}": scan2_capacity_check((bits, k))
-                for bits, k in scan2_capacity_cases()}
-    return {"cases": len(cases), "cluster_cases": cluster, "nw": list(SCAN_EDGE_NW),
-            "k": [20, 32, 400, 1100], "exceptions_per_row_max": exc_bucket(),
-            "capacity_forms": capacity, "equal": True}
+    for case in cases:
+        scan2_edge_check(case)
+    return {"cases": len(cases), "nw": list(SCAN_EDGE_NW), "k": [20, 32, 400, 1100],
+            "exceptions_per_row_max": exc_bucket(), "equal": True}
 
 
 @functools.lru_cache(maxsize=None)
@@ -958,20 +834,19 @@ def sized_truth(nbytes: int, k: int) -> tuple[np.ndarray, np.ndarray]:
     return bf.words_u32().view(np.int32).copy(), draft[:n]
 
 
-FORM_KS = (32, 20)
-FORM_ROWS = (1, 2, 4)  # the pipe's calls: [rows, 2^19 + k - 1]
+SIZE_ROW_KS = (32, 20)
+SIZE_ROW_CALLS = (1, 2, 4)  # the pipe's calls: [rows, 2^19 + k - 1]
 
 
-def scan2_form_rows(card: str) -> list[dict]:
-    """Kernel 8 in both forms on the pipe's call shapes [1, 2 and 4, 2^19
-    + k - 1] at k = 32 and 20, against filters of each of FORM_SIZES: a
-    truth filter of a contig that `-b 1` gives that size (sized_truth; the
-    rows cut from its draft, repeated where the call is longer) and a p =
-    0.75 filter, the rows with exceptions (PACKED2_EXCEPTIONS) packed as
-    the pipe packs them.  Each row: both forms and kernel 2 on the raw rows
-    bit-equal to the plain version, their device times in alternated turns
-    with the spread, the requests (L2 or DSMEM) and their rate, the cluster
-    grid, the rule's form and whether it picked the faster."""
+def scan2_size_rows(card: str) -> list[dict]:
+    """Kernel 8 on the pipe's call shapes [1, 2 and 4, 2^19 + k - 1] at k =
+    32 and 20, against filters of each of FILTER_SIZES: a truth filter of a
+    contig that `-b 1` gives that size (sized_truth; the rows cut from its
+    draft, repeated where the call is longer) and a p = 0.75 filter, the
+    rows with exceptions (PACKED2_EXCEPTIONS) packed as the pipe packs
+    them.  Each row: kernel 8 and kernel 2 on the raw rows bit-equal to the
+    plain version, both kernels' `device_ms`, the L2 requests and their
+    rate."""
     import torch
 
     from goldpolish_tpu_torch.ops import scan_conv as sc
@@ -979,14 +854,14 @@ def scan2_form_rows(card: str) -> list[dict]:
     rng = np.random.default_rng(SEED + 11)
     dev = torch.device("cuda")
     out = []
-    for nbytes in FORM_SIZES:
+    for nbytes in FILTER_SIZES:
         bits = nbytes * 8
         p75 = torch.from_numpy(random_words(rng, bits)).to(dev)
-        for k in FORM_KS:
+        for k in SIZE_ROW_KS:
             truth_words, draft = sized_truth(nbytes, k)
             truth_words = torch.from_numpy(truth_words).to(dev)
-            for b in FORM_ROWS:
-                length = (1 << 19) + k - 1
+            length = (1 << 19) + k - 1
+            for b in SIZE_ROW_CALLS:
                 rows = np.resize(draft, b * (1 << 19) + k - 1)
                 rows = np.stack([rows[i << 19:(i << 19) + length] for i in range(b)])
                 codes = with_exceptions(rng, rows, PACKED2_EXCEPTIONS[:b])
@@ -994,38 +869,21 @@ def scan2_form_rows(card: str) -> list[dict]:
                 raw = torch.from_numpy(codes).to(dev)
                 for label, words in (("truth", truth_words), ("p75", p75)):
                     args = (words, bits, 4, k, length, packed, idx, byt)
-                    forms = scan2_forms(bits, k)
                     plain = sc.scan_present_packed2_reference(*args)
-                    k2 = sc.scan_present_packed(words, bits, 4, k, raw)
-                    errs = {form: int_err(sc.scan_present_packed2(*args, _form=form), plain)
-                            for form in forms}
-                    errs["kernel2"] = int_err(k2, plain)
-                    calls = {form: (functools.partial(sc.scan_present_packed2, *args,
-                                                      _form=form),
-                                    "gp_scan2_cluster_kernel" if form == "cluster"
-                                    else "gp_scan2_kernel") for form in forms}
-                    calls["kernel2"] = (functools.partial(sc.scan_present_packed, words, bits,
-                                                          4, k, raw), "gp_scan_kernel")
-                    times = turns_device_ms(calls)
+                    err = max(int_err(sc.scan_present_packed2(*args), plain),
+                              int_err(sc.scan_present_packed(words, bits, 4, k, raw), plain))
+                    dev_ms = device_ms(lambda: sc.scan_present_packed2(*args), 20)
+                    k2_ms = device_ms(lambda: sc.scan_present_packed(words, bits, 4, k, raw), 20)
                     requests = scan_requests(words, bits, 4, k, raw)
-                    rule = sc.scan2_form(bits, k)
                     row = {"k": k, "filter": label, "filter_bytes": nbytes,
-                           "shape": list(codes.shape), "rule_form": rule, "forms": forms,
-                           "equal": not any(errs.values()), "max_abs_err": max(errs.values()),
-                           "max_abs_err_by_form": errs, "requests": requests,
-                           **{f"{name}_{key}": (t[key] if t else None)
-                              for name, t in times.items()
-                              for key in ("device_ms", "spread_ms")},
-                           **{f"{name}_requests_per_s":
-                              (requests / (t["device_ms"] * 1e-3) if t else None)
-                              for name, t in times.items()},
-                           **form_verdict(times, rule),
-                           **({"cluster_grid": sc.scan2_cluster_grid(k, bits, b, length)}
-                              if "cluster" in forms else {}),
+                           "shape": list(codes.shape), "equal": not err, "max_abs_err": err,
+                           "device_ms": dev_ms, "kernel2_device_ms": k2_ms,
+                           "l2_requests": requests,
+                           "l2_requests_per_s": requests / (dev_ms * 1e-3) if dev_ms else None,
                            "card": card}
                     out.append(row)
-                    emit(phase="kernel_scan_packed2_forms", **row)
-                    if not row["equal"]:
+                    emit(phase="kernel_scan_packed2_sizes", **row)
+                    if err:
                         raise AssertionError(f"kernel 8 disagrees at {nbytes} bytes: {row}")
     return out
 
@@ -1723,11 +1581,9 @@ def main_counters() -> dict:
         "scan_eval_launches": se.scan_eval.launches,
         "scan_kernel_launches": sc.scan_present_packed.launches,
         "scan2_kernel_launches": sc.scan_present_packed2.launches,
-        "scan2_cluster_launches": sc.scan_present_packed2.cluster_launches,
         "site_eval_launches": sd.site_eval.launches,
         "dbg_extend_launches": de.dbg_extend_chain.launches,
         "probe_kernel_launches": bp.probe_lo32.launches,
-        "probe_cluster_launches": bp.probe_lo32.cluster_launches,
         **{f"fill_{op.__name__}_launches": op.launches for op in bs.KERNEL_OPS},
         "plain_scan_eval": se.scan_eval_reference.calls,
         "plain_scan": sc.scan_present_packed_reference.calls,
@@ -1895,7 +1751,7 @@ def packed_route_input(inp: dict) -> dict:
     return {**inp, "draft": draft}
 
 
-def phase_packed_route(inp: dict, off: dict) -> dict:
+def phase_packed_route(packed_inp: dict, off: dict) -> dict:
     """The packed transfer on the main path: `hybrid_eval_off_packed`,
     the eval-off arm (GPTPU_DEVICE_EVAL=0, 4 batches, 4 k) on
     packed_route_input's draft, against the numpy backend on that input.
@@ -1903,7 +1759,6 @@ def phase_packed_route(inp: dict, off: dict) -> dict:
     packed (kernel 8) and raw (kernel 2) calls of this arm and of the
     eval-off arm on the gapped draft, and each arm's packing seconds."""
     t = time.monotonic()
-    packed_inp = packed_route_input(inp)
     arm = run_arm(packed_inp, "hybrid_eval_off_packed",
                   {**FORCE, "GPTPU_DEVICE_EVAL": "0"}, "--backend", "hybrid")
     host = run_arm(packed_inp, "numpy_packed_input", {}, "--backend", "numpy")
@@ -1922,7 +1777,7 @@ def phase_packed_route(inp: dict, off: dict) -> dict:
     if not line["equals_numpy"]:
         raise AssertionError(f"the packed arm's output differs from numpy: {line}")
     require_launches(arm, "scan2_kernel")
-    return {**line, "launches": arm["scan2_kernel_launches"], "input": packed_inp}
+    return {**line, "launches": arm["scan2_kernel_launches"]}
 
 
 def split_input(inp: dict) -> dict:
@@ -1955,33 +1810,32 @@ def split_input(inp: dict) -> dict:
     return {**inp, "draft": draft, "paf": paf, "truths": truths}
 
 
-def phase_cluster_route(packed_inp: dict) -> dict:
-    """Kernel 8's cluster form on the main path: `hybrid_eval_off_cluster`,
-    the eval-off arm (GPTPU_DEVICE_EVAL=0) on packed_route_input's draft
-    with each contig cut in two (split_input: 8 contigs of ~580 kbp, each
-    batch's filter 2 MiB), against the numpy backend on that input.  Its
-    bytes must equal numpy's, every call must go packed (no raw call, no
-    row over the exception bucket) and kernel 8 must launch in its cluster
-    form."""
+def phase_split_route(packed_inp: dict) -> dict:
+    """The packed transfer on 2 MiB filters on the main path:
+    `hybrid_eval_off_split`, the eval-off arm (GPTPU_DEVICE_EVAL=0) on
+    packed_route_input's draft with each contig cut in two (split_input: 8
+    contigs of ~580 kbp, each batch's filter 2 MiB), against the numpy
+    backend on that input.  Its bytes must equal numpy's, every call must
+    go packed (no raw call, no row over the exception bucket) and kernel 8
+    must launch."""
     t = time.monotonic()
     inp = split_input(packed_inp)
-    arm = run_arm(inp, "hybrid_eval_off_cluster", {**FORCE, "GPTPU_DEVICE_EVAL": "0"},
+    arm = run_arm(inp, "hybrid_eval_off_split", {**FORCE, "GPTPU_DEVICE_EVAL": "0"},
                   "--backend", "hybrid")
-    host = run_arm(inp, "numpy_cluster_input", {}, "--backend", "numpy")
-    arm["name"] = "hybrid_eval_off_cluster"
+    host = run_arm(inp, "numpy_split_input", {}, "--backend", "numpy")
+    arm["name"] = "hybrid_eval_off_split"
     line = {"equals_numpy": arm["bytes"] == host["bytes"], "contigs": len(arm["records"]),
             "packed_calls": arm["scan2_kernel_launches"],
-            "cluster_calls": arm["scan2_cluster_launches"],
             "raw_calls": arm["scan_kernel_launches"],
             "pack2_overflows": arm["pack2_overflows"], "wall_s": arm["wall_s"],
             "numpy_wall_s": host["wall_s"], "seconds": time.monotonic() - t}
-    emit(phase="main_cluster_route", **line)
+    emit(phase="main_split_route", **line)
     if not line["equals_numpy"]:
-        raise AssertionError(f"the cluster arm's output differs from numpy: {line}")
+        raise AssertionError(f"the split arm's output differs from numpy: {line}")
     if line["raw_calls"] or line["pack2_overflows"]:
-        raise AssertionError(f"the cluster arm sent calls raw: {line}")
-    require_launches(arm, "scan2_cluster")
-    return {**line, "launches": arm["scan2_cluster_launches"]}
+        raise AssertionError(f"the split arm sent calls raw: {line}")
+    require_launches(arm, "scan2_kernel")
+    return line
 
 
 def require_launches(line: dict, *names: str) -> None:
@@ -2608,8 +2462,9 @@ def phase_main(rng):
         off = run_arm(inp, "hybrid_eval_off", {**FORCE, "GPTPU_DEVICE_EVAL": "0"},
                       "--backend", "hybrid")
         host = run_arm(inp, "numpy", {}, "--backend", "numpy")
-        packed_route = phase_packed_route(inp, off)
-        cluster_route = phase_cluster_route(packed_route.pop("input"))
+        packed_inp = packed_route_input(inp)
+        packed_route = phase_packed_route(packed_inp, off)
+        phase_split_route(packed_inp)
         ov = run_arm(inp, "fill_overlap", {**FORCE, "GPTPU_DEVICE_EVAL": None},
                      "--fill-overlap")
         # the jax backend with the sealer (its lockstep searches walk the
@@ -2686,7 +2541,6 @@ def phase_main(rng):
         launches = {"scan_eval": on["scan_eval_launches"],
                     "scan_present_packed": off["scan_kernel_launches"],
                     "scan_present_packed2": packed_route["launches"],
-                    "scan_present_packed2_cluster": cluster_route["launches"],
                     "probe_lo32": on["probe_kernel_launches"],
                     "bloom_sort_fill": sum(fill_launches),
                     "site_eval": dbb["site_eval_launches"],
@@ -3187,7 +3041,7 @@ def main() -> int:
     t = time.monotonic()
     scans2 = scan_packed2_rows(card)
     emit(phase="kernel_scan_packed2_edges", **scan2_edges())
-    forms2 = scan2_form_rows(card)
+    sizes2 = scan2_size_rows(card)
     filter_uploads(card)
     emit(phase="kernel_scan_packed2_phases", seconds=time.monotonic() - t)
     launches, truths, fills, ext_main, paths = phase_main(rng)
@@ -3198,7 +3052,8 @@ def main() -> int:
     first = scans[0]
     probe = next(r for r in probes if r["filter_bytes"] == FILTER_BITS // 8)
     # no single PyTorch call computes any of these functions: library_ms null
-    # (PERF.md's kernel table gives the reason for each)
+    # (PERF.md's kernel table gives the reason for each), but for kernel 1
+    # a yardstick: one torch.take of all 4 words a row (probe_size_rows)
     keys = ("device_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [
         {
@@ -3226,14 +3081,10 @@ def main() -> int:
             "source": "goldpolish_tpu_torch/csrc/scan_conv.cu",
             "replaces": "goldpolish_tpu/ops/scan_conv.py:247",
             "launches": launches["scan_present_packed2"],
-            "cluster_launches": launches["scan_present_packed2_cluster"],
             "max_abs_err": max(paths["sharded"]["scan2_max_abs_err"],
-                               *(r["max_abs_err"] for r in scans2 + forms2)),
+                               *(r["max_abs_err"] for r in scans2 + sizes2)),
             "ms": scans2[0]["ms"], "plain_ms": scans2[0]["plain_ms"],
             **{key: scans2[0][key] for key in keys}, "library_ms": None,
-            "cluster_form_device_ms": {f"{r['filter_bytes']}_{r['filter']}_k{r['k']}_"
-                                       f"B{r['shape'][0]}": r.get("cluster_device_ms")
-                                       for r in forms2 if r["rule_form"] == "cluster"},
         },
         {
             "name": "probe_lo32", "route": "cuda",
@@ -3244,8 +3095,6 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in probes),
             "ms": probe["ms"], "plain_ms": probe["plain_ms"],
             **{key: probe[key] for key in keys}, "library_ms": probe["library_ms"],
-            "cluster_form_device_ms": {r["filter_bytes"]: r.get("cluster_device_ms")
-                                       for r in probes if r["rule_form"] == "cluster"},
         },
         {
             "name": "dbg_bfs", "route": "cuda",

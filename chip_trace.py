@@ -4,7 +4,7 @@
 Run from the repository root:
 
     python3 chip_trace.py [--root DIR] [--runs N] [--no-trace]
-                          [--kernels | --jax | --chain-steps | --packed]
+                          [--kernels | --probe | --jax | --chain-steps | --packed]
 
 It polishes chip_smoke.py's main-path input (the seeded 4.64 Mbp gapped
 draft, its reads and PAF, `-b 1`, k = 32, 28, 24, 20, sealer on) with three
@@ -47,6 +47,11 @@ bfs_rows, phase_site_eval and probe_rows: every k on both filters, both
 BFS tiers on the sealer run's searches and on the mixed batch, the site
 eval's main-path calls, and the extension probe on the jax sealer's
 rounds and on 2^16 vertices; each equal to its plain version first).
+--probe times kernel 1 alone at 512 KiB, 1, 2 and 4 MiB
+(chip_smoke.probe_size_rows, [2^21, 4] rows, each equal to its plain
+version first) and kernel 2 at k = 32 on both filters beside it
+(chip_smoke.scan_rows): kernel 1's L2 request rate against kernel 2's in
+the same process.
 --root imports goldpolish_tpu_torch from another checkout (for example an
 unpacked parent commit), so two commits can be compared within one call:
 run it once per checkout, in turns.
@@ -108,6 +113,9 @@ def main() -> int:
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--kernels", action="store_true",
                       help="time kernels 2, 3, 6 and 7 alone, no CLI run")
+    mode.add_argument("--probe", action="store_true",
+                      help="time kernel 1 at four filter sizes and kernel 2 beside it, "
+                           "no CLI run")
     mode.add_argument("--jax", action="store_true",
                       help="the jax backend's two arms, host fill and "
                            "device_bf_build, sealer on")
@@ -143,6 +151,14 @@ def main() -> int:
     os.makedirs(work)
     try:
         rng = np.random.default_rng(cs.SEED)
+        if args.probe:
+            # the smoke's kernel phase's inputs, drawn in its order
+            p75 = torch.from_numpy(cs.random_words(rng, cs.FILTER_BITS)).cuda()
+            lo = rng.integers(0, 2**32, (1 << 21, 4), dtype=np.uint64).astype(np.uint32)
+            lo = torch.from_numpy(lo.view(np.int32)).cuda()
+            cs.probe_size_rows(np.random.default_rng(cs.SEED + 10), cs.card_line(), lo, p75)
+            cs.scan_rows(rng, p75, time_plain=False, ks=(32,))
+            return 0
         if args.kernels:
             p75 = torch.from_numpy(cs.random_words(rng, cs.FILTER_BITS)).cuda()
             cs.scan_rows(rng, p75, time_plain=False)

@@ -13,31 +13,28 @@
 // What bounds it on the H100: the hash tuples are streamed once (16 bytes a
 // row at h = 4, 33.5 MB for 2^21 rows: ~10 us of HBM), but the probes are
 // random 4-byte requests to a filter that lives in L2, up to h a row, and
-// the rate at which L2 serves those (~124 G/s, the rate kernels 2 and 8
-// reach) sets a floor far above the byte bound.
+// the rate at which L2 serves those (~120 G/s, the rate kernels 2 and 8
+// reach) sets a floor far above the byte bound.  The tuples pass through
+// the same L2 (1.05 M sectors at [2^21, 4]).
 //
-// What the design does about it (two forms, one per filter size; the
-// wrapper's rule, ops/bloom_probe.py:probe_form, picks):
-//  * both: a warp takes 128 rows and each lane probes 4 of them, rows
-//    32q + lane (q < 4), so each load instruction of the warp reads 32
-//    neighbouring rows: at h = 4 with 16-byte aligned tuples one 16-byte
-//    load a row (`__ldcs`, streaming: the tuples, read once, are evicted
-//    first and leave the filter in L2), else one 4-byte load a hash.  The
-//    probes go in h rounds over the 4 rows (gp_probe_rounds): every live
-//    row's load starts before any test, and a row stops at its first clear
-//    bit.  Four warp ballots then hand each lane the results of 4
-//    consecutive rows, stored as one 4-byte write.  Four rows a lane, not
-//    kernel 2's 8: at 8 the tuples held in registers (8 x 16 bytes) take
-//    the kernel to 64 registers and 4 blocks a SM, at 4 it runs at 40 and
-//    6 blocks, and measured faster (PERF.md §6, PR 14);
-//  * the L2 form (gp_probe_lo32_kernel): the words from L2 through the
-//    read-only path, one warp per 128 rows;
-//  * the cluster form (gp_probe_lo32_cluster_kernel), for power-of-two
-//    filters of at most 2 MiB: a persistent grid of thread-block clusters,
-//    each holding the whole filter in its blocks' shared memory (one slice
-//    of at most 128 KiB a block, GpClusterFilter of bloom_probe.cuh), its
-//    warps walking the 128-row segments; each word comes over distributed
-//    shared memory, not from L2.
+// What the design does about it:
+//  * a warp takes 128 rows and each lane probes 4 of them, rows 32q + lane
+//    (q < 4), so each load instruction of the warp reads 32 neighbouring
+//    rows: at h = 4 with 16-byte aligned tuples one 16-byte load a row
+//    (`__ldcs`, streaming: the tuples, read once, are evicted first and
+//    leave the filter in L2), else one 4-byte load a hash;
+//  * the probes go in h rounds over the 4 rows (gp_probe_rounds of
+//    bloom_probe.cuh, kernels 2 and 8's loop): every live row's load starts
+//    before any test, and a row stops at its first clear bit;
+//  * four warp ballots then hand each lane the results of 4 consecutive
+//    rows, stored as one 4-byte write;
+//  * four rows a lane, not kernel 2's 8: at 8 the tuples held in registers
+//    (8 x 16 bytes) took the kernel to 64 registers and 4 blocks a SM,
+//    and it measured slower than at 4.
+// A second form that held filters of at most 2 MiB in the shared memory of
+// a thread-block cluster, read over distributed shared memory, was built
+// and measured 1.65-1.9x slower than this one at 512 KiB - 2 MiB (it served
+// 61-75 G requests/s, L2 116-124 G/s), and was removed (PERF.md §6, PR 14).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -46,24 +43,26 @@
 
 namespace {
 
-constexpr int kRun = 4;               // rows a lane probes, and stores
-constexpr int kWarpRows = 32 * kRun;  // rows a warp takes
+constexpr int kRun = 4;                // rows a lane probes, and stores
+constexpr int kWarpRows = 32 * kRun;   // rows a warp takes
 constexpr int kPerBallot = 32 / kRun;  // lanes whose rows one ballot holds
-constexpr int kProbeThreads = 256;    // the L2 form's block
-constexpr int kClusterThreads = 1024;  // the cluster form's block (one a SM)
+constexpr int kProbeThreads = 256;
 
 // Bytes 0/1 of the 4 low bits of x, little-endian: bit j to byte j.
 __device__ __forceinline__ uint32_t gp_spread4(uint32_t x) {
   return (x * 0x204081u) & 0x01010101u;
 }
 
-// One warp's rows [seg * 128, seg * 128 + 128) ∩ [0, n): lane probes rows
-// seg * 128 + 32q + lane (q < 4) and writes rows seg * 128 + 4 lane .. + 3.
-// Every lane of the warp calls it (the ballots need all 32).
-template <bool kVec4, class WordOf>
-__device__ __forceinline__ void probe_segment(int64_t seg, const uint32_t* __restrict__ lo32,
-                                              int64_t n, int h, uint32_t mask,
-                                              WordOf word_of, uint8_t* __restrict__ out) {
+// kVec4: h = 4 and the tuples 16-byte aligned.  Warp w takes rows
+// [128 w, 128 w + 128) ∩ [0, n): lane probes rows 128 w + 32q + lane
+// (q < 4) and writes rows 128 w + 4 lane .. + 3.  No thread returns early
+// (the ballots need all 32 lanes).
+template <bool kVec4>
+__global__ void __launch_bounds__(kProbeThreads)
+gp_probe_lo32_kernel(const uint32_t* __restrict__ words, uint32_t mask,
+                     const uint32_t* __restrict__ lo32, int64_t n, int h,
+                     uint8_t* __restrict__ out) {
+  const int64_t seg = ((int64_t)blockIdx.x * kProbeThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t r0 = seg * kWarpRows + lane;
   unsigned live = 0;
@@ -78,23 +77,16 @@ __device__ __forceinline__ void probe_segment(int64_t seg, const uint32_t* __res
       v[q] = make_uint4(0u, 0u, 0u, 0u);
       if ((live >> q) & 1u) v[q] = __ldcs((const uint4*)lo32 + (r0 + 32 * q));
     }
-    found = gp_probe_rounds<kRun>(
-        4, live,
-        [&](int q, int i) -> uint64_t {
-          const uint32_t x = i == 0 ? v[q].x : i == 1 ? v[q].y : i == 2 ? v[q].z : v[q].w;
-          return x & mask;
-        },
-        word_of);
+    found = gp_probe_rounds<kRun>(words, 4, live, [&](int q, int i) -> uint64_t {
+      return (i == 0 ? v[q].x : i == 1 ? v[q].y : i == 2 ? v[q].z : v[q].w) & mask;
+    });
   } else {
-    found = gp_probe_rounds<kRun>(
-        h, live,
-        [&](int q, int i) -> uint64_t {
-          return __ldcs(lo32 + (r0 + 32 * q) * h + i) & mask;
-        },
-        word_of);
+    found = gp_probe_rounds<kRun>(words, h, live, [&](int q, int i) -> uint64_t {
+      return r0 + 32 * q < n ? __ldcs(lo32 + (r0 + 32 * q) * h + i) & mask : 0u;
+    });
   }
-  // ballot q: bit l = row seg * 128 + 32q + l; lane takes bits
-  // 4 (lane % 8) .. + 3 of ballot lane / 8: rows seg * 128 + 4 lane .. + 3
+  // ballot q: bit l = row 128 w + 32q + l; lane takes bits 4 (lane % 8) ..
+  // + 3 of ballot lane / 8, rows 128 w + 4 lane .. + 3
   uint32_t mine = 0;
 #pragma unroll
   for (int q = 0; q < kRun; ++q) {
@@ -110,114 +102,24 @@ __device__ __forceinline__ void probe_segment(int64_t seg, const uint32_t* __res
   }
 }
 
-template <bool kVec4>
-__global__ void __launch_bounds__(kProbeThreads)
-gp_probe_lo32_kernel(const uint32_t* __restrict__ words, uint32_t mask,
-                     const uint32_t* __restrict__ lo32, int64_t n, int h,
-                     uint8_t* __restrict__ out) {
-  const int64_t seg = ((int64_t)blockIdx.x * kProbeThreads + threadIdx.x) >> 5;
-  probe_segment<kVec4>(
-      seg, lo32, n, h, mask, [words](uint64_t bit) { return gp_bloom_word(words, bit); },
-      out);
-}
-
-template <bool kVec4>
-__global__ void __launch_bounds__(kClusterThreads)
-gp_probe_lo32_cluster_kernel(const uint32_t* __restrict__ words, uint64_t nwords,
-                             uint32_t slice_words, uint32_t mask,
-                             const uint32_t* __restrict__ lo32, int64_t n, int h,
-                             uint8_t* __restrict__ out) {
-  extern __shared__ __align__(16) uint32_t s_slice[];
-  const auto filter = gp_cluster_filter_load<true>(s_slice, words, nwords, slice_words);
-  cooperative_groups::this_cluster().sync();  // every slice has landed
-  const int64_t nseg = (n + kWarpRows - 1) / kWarpRows;
-  const int64_t warps = (int64_t)gridDim.x * (kClusterThreads / 32);
-  for (int64_t seg = ((int64_t)blockIdx.x * kClusterThreads + threadIdx.x) >> 5; seg < nseg;
-       seg += warps)
-    probe_segment<kVec4>(
-        seg, lo32, n, h, mask, [&filter](uint64_t bit) { return filter.word(bit); }, out);
-  cooperative_groups::this_cluster().sync();  // no slice leaves while read
-}
-
-// The cluster form's shape at `bits` and the clusters it launches for n
-// rows (at most those that fit at once, at most one block a 32 segments);
-// 0 clusters where no cluster holds the filter.
-struct ProbeGrid {
-  GpClusterShape shape;
-  int64_t clusters;
-  bool vec4;
-};
-
-cudaError_t probe_cluster_grid(uint64_t bits, int64_t n, bool vec4, ProbeGrid* g) {
-  g->shape = gp_cluster_shape(bits);
-  g->vec4 = vec4;
-  g->clusters = 0;
-  if (g->shape.blocks > kGpClusterMaxBlocks) return cudaSuccess;
-  auto kernel = vec4 ? gp_probe_lo32_cluster_kernel<true> : gp_probe_lo32_cluster_kernel<false>;
-  cudaError_t err = cudaSuccess;
-  const int cap = gp_cluster_capacity((const void*)kernel, g->shape.blocks, kClusterThreads,
-                                      (size_t)g->shape.slice_words * 4, &err);
-  if (err != cudaSuccess) return err;
-  const int64_t blocks_needed =
-      ((n + kWarpRows - 1) / kWarpRows + kClusterThreads / 32 - 1) / (kClusterThreads / 32);
-  const int64_t wanted = (blocks_needed + g->shape.blocks - 1) / g->shape.blocks;
-  g->clusters = wanted < cap ? wanted : cap;
-  return cudaSuccess;
-}
-
-bool pow2_bits(uint64_t bits) { return bits && !(bits & (bits - 1)) && bits <= (1ull << 32); }
-
 }  // namespace
 
 // words: uint32[bits/32] (device); lo32: uint32[n, h] row-major (device);
 // out: bool/uint8[n] (device, 4-byte aligned).  bits must be a power of two
-// <= 2^32 (the wrapper checks).  form 0: the L2 form; 1: the cluster form
-// (bits at most 2^24; cudaErrorInvalidValue where no cluster holds the
-// filter or none fits on the card).  Launches on `stream`; returns
+// <= 2^32 (the wrapper checks).  Launches on `stream`; returns
 // cudaGetLastError().
-extern "C" int gp_probe_lo32(const void* words, uint64_t bits, const void* lo32, int64_t n,
-                             int h, int form, void* out, void* stream) {
+extern "C" int gp_probe_lo32(const void* words, uint64_t bits, const void* lo32,
+                             int64_t n, int h, void* out, void* stream) {
   if (n <= 0) return 0;
-  if (h < 1 || !pow2_bits(bits) || ((uintptr_t)out & 3) || (form != 0 && form != 1))
+  if (h < 1 || bits == 0 || (bits & (bits - 1)) || bits > (1ull << 32) ||
+      ((uintptr_t)out & 3))
     return (int)cudaErrorInvalidValue;
+  // the 16-byte loads need an aligned row 0; a view's data_ptr() may not be
   const bool vec4 = h == 4 && ((uintptr_t)lo32 & 15) == 0;
-  const uint32_t mask = (uint32_t)(bits - 1);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (form == 0) {
-    const int64_t blocks = (n + kProbeThreads * kRun - 1) / (kProbeThreads * kRun);
-    auto kernel = vec4 ? gp_probe_lo32_kernel<true> : gp_probe_lo32_kernel<false>;
-    kernel<<<(unsigned)blocks, kProbeThreads, 0, s>>>((const uint32_t*)words, mask,
-                                                      (const uint32_t*)lo32, n, h,
-                                                      (uint8_t*)out);
-    return (int)cudaGetLastError();
-  }
-  ProbeGrid g;
-  cudaError_t err = probe_cluster_grid(bits, n, vec4, &g);
-  if (err != cudaSuccess) return (int)err;
-  if (g.clusters < 1) return (int)cudaErrorInvalidValue;
-  auto kernel = vec4 ? gp_probe_lo32_cluster_kernel<true> : gp_probe_lo32_cluster_kernel<false>;
-  err = gp_launch_cluster(kernel, g.shape.blocks, g.clusters, kClusterThreads,
-                          (size_t)g.shape.slice_words * 4, s, (const uint32_t*)words,
-                          (uint64_t)((bits + 31) / 32), g.shape.slice_words, mask,
-                          (const uint32_t*)lo32, n, h, (uint8_t*)out);
-  if (err != cudaSuccess) return (int)err;
+  const int64_t blocks = (n + kProbeThreads * kRun - 1) / (kProbeThreads * kRun);
+  auto kernel = vec4 ? gp_probe_lo32_kernel<true> : gp_probe_lo32_kernel<false>;
+  kernel<<<(unsigned)blocks, kProbeThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)words, (uint32_t)(bits - 1), (const uint32_t*)lo32, n, h,
+      (uint8_t*)out);
   return (int)cudaGetLastError();
-}
-
-// The cluster form's grid for n rows at `bits` (h = 4, aligned tuples):
-// out[0] blocks a cluster, out[1] slice bytes a block, out[2] clusters it
-// launches (0: none holds the filter), out[3] clusters that fit on the card
-// at once.  Returns a cudaError_t.
-extern "C" int gp_probe_lo32_cluster_grid(uint64_t bits, int64_t n, int64_t* out) {
-  if (!pow2_bits(bits)) return (int)cudaErrorInvalidValue;
-  ProbeGrid g;
-  cudaError_t err = probe_cluster_grid(bits, n, true, &g);
-  if (err != cudaSuccess) return (int)err;
-  out[0] = g.shape.blocks;
-  out[1] = (int64_t)g.shape.slice_words * 4;
-  out[2] = g.clusters;
-  ProbeGrid all;
-  err = probe_cluster_grid(bits, INT64_MAX / 2, true, &all);
-  out[3] = all.clusters;
-  return (int)err;
 }

@@ -12,34 +12,14 @@
 // Layout: bit b of the filter is bit (b & 31) of little-endian word b >> 5
 // (goldpolish_tpu/ops/bloom.py:112-114, BloomFilter.words_u32).
 //
-// Beside the bit test, two pieces kernels 1, 2 and 8 share:
-//  * gp_probe_rounds, the probe rounds of a thread's run of 8 keys: round
-//    i computes the bit of hash i of every key still alive, starts all
-//    those loads, and only then tests them (a thread's instructions go in
-//    order, so a test right after its load would hold the next load back);
-//  * the cluster-resident filter (GpClusterFilter): a filter of at most
-//    kGpClusterMaxBlocks * kGpClusterSliceBytes = 2 MiB cut into one slice
-//    per block of a thread-block cluster, each slice in its block's shared
-//    memory, every word read over distributed shared memory (mapa +
-//    ld.shared::cluster) instead of from L2.  What it is for: the probes of
-//    kernels 1, 2, 4 and 8 are random 4-byte requests to a filter that lives
-//    in L2, and the rate at which L2 serves them (~124 G/s on the H100)
-//    bounds those kernels; a slice read over the SM-to-SM network does not
-//    go through L2.  A kernel that uses it launches a persistent grid of
-//    clusters (gp_launch_cluster), each block loads its slice once
-//    (gp_cluster_filter_load) and the cluster synchronises before the first
-//    remote read and again before any block exits (a block's shared memory
-//    must outlive every read of it).
+// Beside the bit test, the probe rounds that kernels 1, 2 and 8 share
+// (gp_probe_rounds): round i computes the bit of hash i of every key of a
+// thread's run still alive, starts all those loads, and only then tests
+// them (a thread's instructions go in order, so a test right after its load
+// would hold the next load back).
 #pragma once
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
 #include <cstdint>
-#include <map>
-#include <mutex>
-#include <tuple>
-#include <utility>
 
 // The word that holds bit `bit`, and the bit of a loaded word: apart, so a
 // caller can start several loads before it tests the first.
@@ -57,172 +37,28 @@ __device__ __forceinline__ bool gp_bloom_test(const uint32_t* __restrict__ words
   return gp_bloom_bit(gp_bloom_word(words, bit), bit);
 }
 
-// The h probe rounds of kRun (<= 32) keys: bit q of `alive` marks key q
-// live; bit_of(q, i) is the filter bit of key q's hash i (called only for
-// live keys), word_of(bit) loads the word that holds a bit.  Returns the
-// keys whose h bits are all set.  A key leaves at its first clear bit and
-// sends no further request.
-template <int kRun, class BitOf, class WordOf>
-__device__ __forceinline__ unsigned gp_probe_rounds(int h, unsigned alive, BitOf bit_of,
-                                                    WordOf word_of) {
-  for (int i = 0; i < h && alive; ++i) {
+// The h probe rounds of kRun (<= 32) keys against `words`: bit q of
+// `alive` marks key q live; bit_of(q, i) is the filter bit of key q's hash
+// i, computed for every key (a dead one's is never loaded, so it must only
+// be safe to compute).  Returns the keys whose h bits are all set.  A key
+// leaves at its first clear bit and sends no further request.
+template <int kRun, class BitOf>
+__device__ __forceinline__ unsigned gp_probe_rounds(const uint32_t* __restrict__ words,
+                                                    int h, unsigned alive, BitOf bit_of) {
+  for (int i = 0; i < h; ++i) {
     uint64_t bit[kRun];
     uint32_t word[kRun];
 #pragma unroll
-    for (int q = 0; q < kRun; ++q) {
-      bit[q] = 0;
-      if ((alive >> q) & 1u) bit[q] = bit_of(q, i);
-    }
+    for (int q = 0; q < kRun; ++q) bit[q] = bit_of(q, i);
 #pragma unroll
     for (int q = 0; q < kRun; ++q) {
       word[q] = ~0u;
-      if ((alive >> q) & 1u) word[q] = word_of(bit[q]);
+      if ((alive >> q) & 1u) word[q] = gp_bloom_word(words, bit[q]);
     }
 #pragma unroll
     for (int q = 0; q < kRun; ++q)
       if (!gp_bloom_bit(word[q], bit[q])) alive &= ~(1u << q);
+    if (!alive) break;
   }
   return alive;
-}
-
-// ---- the cluster-resident filter ------------------------------------------
-
-constexpr int64_t kGpClusterSliceBytes = 128 * 1024;  // at most, per block
-constexpr int kGpClusterMaxBlocks = 16;               // a non-portable cluster size
-// Shared memory one block may opt in to on the H100 (dynamic + static).
-constexpr int64_t kGpSmemOptinBytes = 232448;
-
-// A filter of `bits` bits cut over a cluster: the fewest blocks (a power of
-// two) whose slices of at most kGpClusterSliceBytes hold it, and each
-// block's slice in words (a multiple of 4, for 16-byte loads; a power of
-// two where `bits` is).  blocks > kGpClusterMaxBlocks: no cluster holds it.
-struct GpClusterShape {
-  int blocks;
-  uint32_t slice_words;
-};
-
-inline GpClusterShape gp_cluster_shape(uint64_t bits) {
-  const uint64_t nwords = (bits + 31) / 32;
-  const uint64_t per = kGpClusterSliceBytes / 4;
-  int blocks = 1;
-  while ((uint64_t)blocks * per < nwords && blocks <= kGpClusterMaxBlocks) blocks *= 2;
-  const uint64_t slice = ((nwords + blocks - 1) / blocks + 3) / 4 * 4;
-  return {blocks, (uint32_t)slice};
-}
-
-// One block's view of the filter: word w lies in block w / slice_words of
-// the cluster, at word w % slice_words of its slice (a shift and a mask
-// where kPow2).
-template <bool kPow2>
-struct GpClusterFilter {
-  uint32_t base;  // shared-window address of this block's slice
-  uint32_t slice_words;
-  uint32_t shift;  // log2(slice_words), where kPow2
-
-  __device__ __forceinline__ uint32_t word(uint64_t bit) const {
-    const uint32_t w = (uint32_t)(bit >> 5);
-    const uint32_t rank = kPow2 ? w >> shift : w / slice_words;
-    const uint32_t at = base + 4u * (w - rank * slice_words);
-    uint32_t remote, v;
-    asm("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(at), "r"(rank));
-    asm volatile("ld.shared::cluster.u32 %0, [%1];" : "=r"(v) : "r"(remote));
-    return v;
-  }
-};
-
-// Every thread of the block calls it: copies this block's slice of words
-// [0, nwords) into s_slice (zeros past nwords), with 16-byte loads where
-// `words` is 16-byte aligned.  The caller synchronises the cluster before
-// any thread reads a word.
-template <bool kPow2>
-__device__ __forceinline__ GpClusterFilter<kPow2> gp_cluster_filter_load(
-    uint32_t* s_slice, const uint32_t* __restrict__ words, uint64_t nwords,
-    uint32_t slice_words) {
-  const uint64_t first =
-      (uint64_t)cooperative_groups::this_cluster().block_rank() * slice_words;
-  if (((uintptr_t)words & 15) == 0) {
-    for (uint32_t i = 4 * threadIdx.x; i < slice_words; i += 4 * blockDim.x) {
-      const uint64_t g = first + i;
-      uint4 v;
-      if (g + 4 <= nwords) {
-        v = __ldg((const uint4*)(words + g));
-      } else {
-        v.x = g < nwords ? words[g] : 0u;
-        v.y = g + 1 < nwords ? words[g + 1] : 0u;
-        v.z = g + 2 < nwords ? words[g + 2] : 0u;
-        v.w = 0u;  // g + 3 >= nwords here
-      }
-      *(uint4*)(s_slice + i) = v;
-    }
-  } else {
-    for (uint32_t i = threadIdx.x; i < slice_words; i += blockDim.x)
-      s_slice[i] = first + i < nwords ? __ldg(words + first + i) : 0u;
-  }
-  return {(uint32_t)__cvta_generic_to_shared(s_slice), slice_words,
-          (uint32_t)(__ffs((int)slice_words) - 1)};
-}
-
-// The clusters of `blocks` blocks of `threads` threads and `smem` bytes of
-// dynamic shared memory that fit on the current device at once
-// (cudaOccupancyMaxActiveClusters), after opting the kernel in to that
-// shared memory and, past 8 blocks, to a non-portable cluster size.
-// Cached per (device, kernel, blocks, threads, smem).  0 where none fits;
-// a CUDA error is returned through `err`.
-inline int gp_cluster_capacity(const void* kernel, int blocks, int threads, size_t smem,
-                               cudaError_t* err) {
-  static std::mutex mu;
-  static std::map<std::tuple<int, const void*, int, int, size_t>, int> cache;
-  int dev = 0;
-  *err = cudaGetDevice(&dev);
-  if (*err != cudaSuccess) return 0;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(dev, kernel, blocks, threads, smem);
-  const auto it = cache.find(key);
-  if (it != cache.end()) return it->second;
-  cudaFuncAttributes attrs;
-  if ((*err = cudaFuncGetAttributes(&attrs, kernel)) != cudaSuccess) return 0;
-  if ((size_t)attrs.maxDynamicSharedSizeBytes < smem &&
-      (*err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)smem)) != cudaSuccess)
-    return 0;
-  if (blocks > 8 &&
-      (*err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
-                                   1)) != cudaSuccess)
-    return 0;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = blocks;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  if ((*err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg)) != cudaSuccess)
-    return 0;
-  cache[key] = clusters;
-  return clusters;
-}
-
-// Launches `kernel` on `stream` as `clusters` clusters of `blocks` blocks.
-template <class... Exp, class... Act>
-inline cudaError_t gp_launch_cluster(void (*kernel)(Exp...), int blocks, int64_t clusters,
-                                     int threads, size_t smem, cudaStream_t stream,
-                                     Act&&... args) {
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = blocks;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(clusters * blocks));
-  cfg.blockDim = dim3(threads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Act>(args)...);
 }

@@ -84,30 +84,21 @@
 // packed words instead of the raw row: one 4-byte load carries 16 bases,
 // decoded to 'A', 'C', 'G', 'T', then each block walks its row's E
 // entries (in any order) and writes the raw byte of those inside its tile.
-// Everything after the tile is kernel 2's code (scan_run), so the two give
-// the same bits on every byte value ('a' hashes as 'A': the forward class
-// comes from the seed table, the reverse from c & 7).  The JAX route
-// classes an exception as "no forward seed" (scan_conv.py:130), which bytes
-// 1, 3, 4 and 7 are not; the raw byte avoids that.  What bounds its L2 form
-// is kernel 2's bound, the random L2 requests of the probes: the decode and
-// the E entries per block add ~1% to them.  Where kernel 2 takes its second
-// form (k past ~360), kernel 8 decodes the rows into device scratch [B, L]
+// Everything after the tile is kernel 2's code, so the two give the same
+// bits on every byte value ('a' hashes as 'A': the forward class comes
+// from the seed table, the reverse from c & 7).  The JAX route classes an
+// exception as "no forward seed" (scan_conv.py:130), which bytes 1, 3, 4
+// and 7 are not; the raw byte avoids that.  What bounds it is kernel 2's
+// bound, the random L2 requests of the probes: the decode and the E
+// entries per block add ~1% to them.  Where kernel 2 takes its second form
+// (k past ~360), kernel 8 decodes the rows into device scratch [B, L]
 // (gp_scan_packed2_scratch_bytes), writes the exceptions there and runs
-// that second form on it.
-//
-// Kernel 8's cluster form (gp_scan2_cluster_kernel): for a filter of at
-// most 2 MiB, where the L2 form would run its shared-memory form, the
-// filter lives in the shared memory of a thread-block cluster
-// (GpClusterFilter, csrc/bloom_probe.cuh) and each probe reads its word
-// over distributed shared memory, not from L2.  The tile fill, the
-// exception walk, the hashing and the rounds are the L2 form's own code;
-// only the word load differs.  So from here on kernels 2 and 8 share one
-// code path only on filters past 2 MiB (and past k ~360): on a smaller
-// filter, kernel 2 (raw rows) still probes L2 while kernel 8 (packed rows)
-// probes the cluster, and they agree bit for bit because scan_run is one
-// function with the word load as its argument.  Which form runs is the
-// wrapper's rule (ops/scan_conv.py:scan2_form), a function of the filter's
-// size.
+// that second form on it.  A form of kernel 8 that held filters of at most
+// 2 MiB in the shared memory of a thread-block cluster (read over
+// distributed shared memory, the tile fill and hashing unchanged) was
+// built and measured 2.0-3.3x slower than this one at 512 KiB - 2 MiB,
+// and was removed (PERF.md §6, PR 14): kernels 2 and 8 share this code
+// path at every filter size.
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -129,15 +120,13 @@ int64_t scan_smem_bytes(int k) {
   return gp_table_bytes(k) + kScanTile + k + 2 * kChunk;
 }
 
-// Window hashes from the direct tables `t` and the run's bytes byte(j);
-// word_of(bit) loads the filter word that holds a bit (from L2, or from
-// the cluster's shared memory in kernel 8's cluster form).
-template <bool kPow2, class T, class Byte, class WordOf>
-__device__ __forceinline__ void scan_run(WordOf word_of, uint64_t bits, int h, int k,
-                                         int64_t w, int64_t nw, int64_t nbytes, int64_t row,
-                                         uint64_t kmul, const T& t, const GpRollTables& s_r,
-                                         Byte byte, uint8_t* __restrict__ out) {
-  static_assert(kRun == 8, "a run is one output byte");
+// Window hashes from the direct tables `t` and the run's bytes byte(j).
+template <bool kPow2, class T, class Byte>
+__device__ __forceinline__ void scan_run(const uint32_t* __restrict__ words, uint64_t bits,
+                                         int h, int k, int64_t w, int64_t nw,
+                                         int64_t nbytes, int64_t row, uint64_t kmul,
+                                         const T& t, const GpRollTables& s_r, Byte byte,
+                                         uint8_t* __restrict__ out) {
   uint64_t base[kRun], fh, rh;
   gp_window_hash(t, k, byte, fh, rh);
   base[0] = fh + rh;
@@ -146,14 +135,15 @@ __device__ __forceinline__ void scan_run(WordOf word_of, uint64_t bits, int h, i
     gp_roll(s_r, fh, rh, byte(q - 1), byte(q - 1 + k));
     base[q] = fh + rh;
   }
-  // window r of the run is bit r of its byte; a window past the row's last
-  // starts out absent (its bit stays 0 and it is never probed)
+  // window r of the run is bit r of its output byte; a window past the
+  // row's last starts out absent (its bit stays 0 and it is never probed)
   const int64_t m = nw - w;  // windows of the run inside the row (>= 1)
   const unsigned live = m >= kRun ? 0xffu : (1u << m) - 1u;
-  const unsigned present = gp_probe_rounds<kRun>(
-      h, live,
-      [&](int q, int i) { return gp_bit_index<kPow2>(gp_nth_hash(base[q], i, kmul), bits); },
-      word_of);
+  // the h rounds of bloom_probe.cuh (kernel 1's loop): round i tests hash
+  // i of every window still alive, its loads all started before any test
+  const unsigned present = gp_probe_rounds<kRun>(words, h, live, [&](int q, int i) {
+    return gp_bit_index<kPow2>(gp_nth_hash(base[q], i, kmul), bits);
+  });
   out[row * nbytes + (w >> 3)] = (uint8_t)present;
 }
 
@@ -173,7 +163,6 @@ gp_scan_kernel(const uint32_t* __restrict__ words, uint64_t bits, int h, int k,
   const int64_t row = blockIdx.y;
   const int64_t w0 = (int64_t)blockIdx.x * kScanTile;
   const int64_t w = w0 + (int64_t)threadIdx.x * kRun;  // the run's first window
-  const auto l2 = [words](uint64_t bit) { return gp_bloom_word(words, bit); };
   if constexpr (kSmem) {
     const GpTableRef t = gp_table_ref(s_dyn, k);
     uint8_t* s_raw = s_dyn + gp_table_bytes(k);
@@ -201,7 +190,7 @@ gp_scan_kernel(const uint32_t* __restrict__ words, uint64_t bits, int h, int k,
     __syncthreads();
     if (w >= nw) return;
     const uint8_t* s = s_raw + a + threadIdx.x * kRun;
-    scan_run<kPow2>(l2, bits, h, k, w, nw, nbytes, row, kmul, t, s_r,
+    scan_run<kPow2>(words, bits, h, k, w, nw, nbytes, row, kmul, t, s_r,
                     [s](int j) { return s[j]; }, out);
   } else {
     const GpGlobalTables t{tf, tr, fclass};
@@ -211,7 +200,7 @@ gp_scan_kernel(const uint32_t* __restrict__ words, uint64_t bits, int h, int k,
     // bytes past the row's end are read only by windows >= nw: 0 here
     const uint8_t* s = codes + row * L + w;
     const int64_t left = L - w;
-    scan_run<kPow2>(l2, bits, h, k, w, nw, nbytes, row, kmul, t, s_r,
+    scan_run<kPow2>(words, bits, h, k, w, nw, nbytes, row, kmul, t, s_r,
                     [s, left](int j) { return j < left ? __ldg(s + j) : (uint8_t)0; }, out);
   }
 }
@@ -227,55 +216,7 @@ __device__ __forceinline__ uint32_t gp_decode4(uint32_t packed) {
   return out;
 }
 
-// Kernel 8's tile: the bytes [w0, w0 + kScanTile + k - 1) of packed row
-// `row` in s_raw, from its packed bytes [w0 / 4, ...): whole 4-byte words,
-// the first at offset `a` < 4 before them (a packed row starts at any
-// byte), so the tile's byte 0 lands at s_raw[4a]; then the row's
-// exceptions inside the tile, as raw bytes (padding: idx >= L).  As in
-// kernel 2, what lies past the row's end is read only by windows >= nw,
-// never probed.  Threads tid < kScanThreads of a group call it, `sync`
-// synchronises the group; the caller syncs again before reading.  Returns
-// where the tile's byte 0 lies.
-template <class Sync>
-__device__ __forceinline__ const uint8_t* scan2_stage_tile(
-    uint8_t* s_raw, int tid, Sync sync, int k, const uint8_t* __restrict__ packed, int64_t B,
-    int64_t L, int64_t P, const int64_t* __restrict__ exc_idx,
-    const uint8_t* __restrict__ exc_byte, int64_t E, int64_t row, int64_t w0) {
-  const int64_t tile = kScanTile + k - 1;
-  const uint8_t* src = packed + row * P + (w0 >> 2);
-  const int a = (int)((uintptr_t)src & 3);
-  const uint8_t* lo = packed;
-  const uint8_t* hi = packed + B * P;
-  const int nwords = (int)((a + (tile + 3) / 4 + 3) / 4);
-  for (int c = tid; c < nwords; c += kScanThreads) {
-    const uint8_t* g = src - a + 4 * (int64_t)c;
-    uint32_t v = 0;
-    if (g >= lo && g + 4 <= hi) {
-      v = __ldg((const uint32_t*)g);
-    } else {
-      for (int i = 0; i < 4; ++i)
-        if (g + i >= lo && g + i < hi) v |= (uint32_t)g[i] << (8 * i);
-    }
-    uint4 bases;
-    bases.x = gp_decode4(v & 0xffu);
-    bases.y = gp_decode4((v >> 8) & 0xffu);
-    bases.z = gp_decode4((v >> 16) & 0xffu);
-    bases.w = gp_decode4(v >> 24);
-    *(uint4*)(s_raw + 16 * c) = bases;
-  }
-  sync();
-  uint8_t* s_tile = s_raw + 4 * a;
-  const int64_t* ei = exc_idx + row * E;
-  const uint8_t* eb = exc_byte + row * E;
-  for (int64_t e = tid; e < E; e += kScanThreads) {
-    const uint64_t p = (uint64_t)__ldg((const long long*)ei + e);
-    if (p < (uint64_t)L && p >= (uint64_t)w0 && p - (uint64_t)w0 < (uint64_t)tile)
-      s_tile[p - (uint64_t)w0] = __ldg(eb + e);
-  }
-  return s_tile;
-}
-
-// Kernel 8, L2 form: kernel 2 with its tile filled from the packed row.
+// Kernel 8 (smem form): kernel 2 with its tile filled from the packed row.
 template <bool kPow2>
 __global__ void __launch_bounds__(kScanThreads)
 gp_scan2_kernel(const uint32_t* __restrict__ words, uint64_t bits, int h, int k,
@@ -291,78 +232,51 @@ gp_scan2_kernel(const uint32_t* __restrict__ words, uint64_t bits, int h, int k,
   const int64_t w0 = (int64_t)blockIdx.x * kScanTile;
   const int64_t w = w0 + (int64_t)threadIdx.x * kRun;
   const GpTableRef t = gp_table_ref(s_dyn, k);
+  uint8_t* s_raw = s_dyn + gp_table_bytes(k);
   gp_load_window_tables(t, k, tf, tr, fclass);
-  const uint8_t* s_tile =
-      scan2_stage_tile(s_dyn + gp_table_bytes(k), threadIdx.x, [] { __syncthreads(); }, k,
-                       packed, B, L, P, exc_idx, exc_byte, E, row, w0);
+  // bytes [w0, w0 + tile) of the row from its packed bytes [w0 / 4, ...):
+  // whole 4-byte words, the first at offset `a` < 4 before them (a packed
+  // row starts at any byte), so the tile's byte 0 lands at s_raw[4a].  As
+  // in kernel 2, what lies past the row's end is read only by windows >=
+  // nw, never probed.
+  const int64_t tile = kScanTile + k - 1;
+  const uint8_t* src = packed + row * P + (w0 >> 2);
+  const int a = (int)((uintptr_t)src & 3);
+  const uint8_t* lo = packed;
+  const uint8_t* hi = packed + B * P;
+  const int nwords = (int)((a + (tile + 3) / 4 + 3) / 4);
+  for (int c = threadIdx.x; c < nwords; c += kScanThreads) {
+    const uint8_t* g = src - a + 4 * (int64_t)c;
+    uint32_t v = 0;
+    if (g >= lo && g + 4 <= hi) {
+      v = __ldg((const uint32_t*)g);
+    } else {
+      for (int i = 0; i < 4; ++i)
+        if (g + i >= lo && g + i < hi) v |= (uint32_t)g[i] << (8 * i);
+    }
+    uint4 bases;
+    bases.x = gp_decode4(v & 0xffu);
+    bases.y = gp_decode4((v >> 8) & 0xffu);
+    bases.z = gp_decode4((v >> 16) & 0xffu);
+    bases.w = gp_decode4(v >> 24);
+    *(uint4*)(s_raw + 16 * c) = bases;
+  }
+  __syncthreads();
+  // the row's exceptions inside the tile, as raw bytes (padding: idx >= L)
+  uint8_t* s_tile = s_raw + 4 * a;
+  const int64_t* ei = exc_idx + row * E;
+  const uint8_t* eb = exc_byte + row * E;
+  for (int64_t e = threadIdx.x; e < E; e += kScanThreads) {
+    const uint64_t p = (uint64_t)__ldg((const long long*)ei + e);
+    if (p < (uint64_t)L && p >= (uint64_t)w0 && p - (uint64_t)w0 < (uint64_t)tile)
+      s_tile[p - (uint64_t)w0] = __ldg(eb + e);
+  }
   gp_load_roll_tables(s_r, t, k);
   __syncthreads();
   if (w >= nw) return;
   const uint8_t* s = s_tile + threadIdx.x * kRun;
-  scan_run<kPow2>([words](uint64_t bit) { return gp_bloom_word(words, bit); }, bits, h, k,
-                  w, nw, nbytes, row, kmul, t, s_r, [s](int j) { return s[j]; }, out);
-}
-
-// Kernel 8, cluster form: a persistent grid of clusters, each holding the
-// whole filter in its blocks' shared memory (GpClusterFilter).  A block of
-// kClusterGroups * kScanThreads threads runs kClusterGroups groups, each
-// doing what a block of the L2 form does on one (row, tile) item at a time
-// (its own tile buffer and named barrier), so the call keeps the L2 form's
-// 2,048-window granularity; the tables are staged once a block.  Only the
-// word load differs: it comes over distributed shared memory.
-constexpr int kClusterGroups = 4;
-constexpr int kClusterThreads = kClusterGroups * kScanThreads;
-
-// One group's tile buffer at k (16-byte multiple).
-__host__ __device__ constexpr int64_t scan2_group_tile_bytes(int k) {
-  return (kScanTile + k + 2 * kChunk + 15) / 16 * 16;
-}
-
-template <bool kPow2>
-__global__ void __launch_bounds__(kClusterThreads)
-gp_scan2_cluster_kernel(const uint32_t* __restrict__ words, uint64_t nwords,
-                        uint32_t slice_words, uint64_t bits, int h, int k,
-                        const uint8_t* __restrict__ packed, int64_t B, int64_t L, int64_t P,
-                        const int64_t* __restrict__ exc_idx,
-                        const uint8_t* __restrict__ exc_byte, int64_t E, int64_t nw,
-                        int64_t nbytes, const uint64_t* __restrict__ tf,
-                        const uint64_t* __restrict__ tr, const uint8_t* __restrict__ fclass,
-                        uint64_t kmul, uint8_t* __restrict__ out) {
-  extern __shared__ __align__(16) uint8_t s_dyn[];
-  __shared__ GpRollTables s_r;
-
-  const auto filter =
-      gp_cluster_filter_load<kPow2>((uint32_t*)s_dyn, words, nwords, slice_words);
-  uint8_t* s_tables = s_dyn + 4 * (int64_t)slice_words;
-  const GpTableRef t = gp_table_ref(s_tables, k);
-  gp_load_window_tables(t, k, tf, tr, fclass);
-  __syncthreads();
-  gp_load_roll_tables(s_r, t, k);
-  cooperative_groups::this_cluster().sync();  // every slice and table has landed
-
-  const int group = threadIdx.x / kScanThreads;
-  const int tid = threadIdx.x % kScanThreads;
-  uint8_t* s_raw = s_tables + gp_table_bytes(k) + group * scan2_group_tile_bytes(k);
-  const auto sync = [group] {
-    asm volatile("bar.sync %0, %1;" ::"r"(group + 1), "n"(kScanThreads) : "memory");
-  };
-  const int64_t tiles = (nw + kScanTile - 1) / kScanTile;
-  for (int64_t item = (int64_t)blockIdx.x * kClusterGroups + group; item < B * tiles;
-       item += (int64_t)gridDim.x * kClusterGroups) {
-    const int64_t row = item / tiles;
-    const int64_t w0 = (item % tiles) * kScanTile;
-    const uint8_t* s_tile =
-        scan2_stage_tile(s_raw, tid, sync, k, packed, B, L, P, exc_idx, exc_byte, E, row, w0);
-    sync();
-    const int64_t w = w0 + (int64_t)tid * kRun;
-    if (w < nw) {
-      const uint8_t* s = s_tile + tid * kRun;
-      scan_run<kPow2>([&filter](uint64_t bit) { return filter.word(bit); }, bits, h, k, w,
-                      nw, nbytes, row, kmul, t, s_r, [s](int j) { return s[j]; }, out);
-    }
-    sync();  // the tile is read before the next item overwrites it
-  }
-  cooperative_groups::this_cluster().sync();  // no slice leaves while read
+  scan_run<kPow2>(words, bits, h, k, w, nw, nbytes, row, kmul, t, s_r,
+                  [s](int j) { return s[j]; }, out);
 }
 
 // Kernel 8's second form, step 1: every packed byte of [B, P] to its (up
@@ -423,95 +337,23 @@ extern "C" int64_t gp_scan_packed2_scratch_bytes(int k, int64_t B, int64_t L) {
   return in_smem ? 0 : B * L;
 }
 
-namespace {
-
-// The cluster form's dynamic shared memory at (k, bits): the slice, the
-// direct tables and kClusterGroups tile buffers; -1 where it does not
-// run: no cluster holds the filter, the L2 form would take its second form
-// (k past ~360), or the block passes the opt-in shared memory.
-int64_t scan2_cluster_smem(int k, uint64_t bits) {
-  const GpClusterShape shape = gp_cluster_shape(bits);
-  if (shape.blocks > kGpClusterMaxBlocks || gp_scan_packed2_scratch_bytes(k, 1, 1)) return -1;
-  const int64_t smem = 4 * (int64_t)shape.slice_words + gp_table_bytes(k) +
-                       kClusterGroups * scan2_group_tile_bytes(k);
-  return smem + (int64_t)sizeof(GpRollTables) <= kGpSmemOptinBytes ? smem : -1;
-}
-
-// The clusters the cluster form launches on [B, nw] (at most those that fit
-// at once, at most one group an item), and those that fit; 0 where it does
-// not run.
-cudaError_t scan2_cluster_grid(int k, uint64_t bits, int64_t items, int64_t* clusters,
-                               int64_t* fit) {
-  *clusters = *fit = 0;
-  const int64_t smem = scan2_cluster_smem(k, bits);
-  if (smem < 0) return cudaSuccess;
-  const GpClusterShape shape = gp_cluster_shape(bits);
-  const bool pow2 = (bits & (bits - 1)) == 0;
-  auto kernel = pow2 ? gp_scan2_cluster_kernel<true> : gp_scan2_cluster_kernel<false>;
-  cudaError_t err = cudaSuccess;
-  *fit = gp_cluster_capacity((const void*)kernel, shape.blocks, kClusterThreads, (size_t)smem,
-                             &err);
-  const int64_t blocks = (items + kClusterGroups - 1) / kClusterGroups;
-  const int64_t wanted = (blocks + shape.blocks - 1) / shape.blocks;
-  *clusters = wanted < *fit ? wanted : *fit;
-  return err;
-}
-
-}  // namespace
-
-// The cluster form's grid at (k, bits) on [B, L] rows: out[0] blocks a
-// cluster, out[1] slice bytes a block, out[2] dynamic shared memory a block
-// (-1: the form does not run), out[3] clusters it launches, out[4] clusters
-// that fit on the card at once.  Returns a cudaError_t.
-extern "C" int gp_scan2_cluster_grid(int k, uint64_t bits, int64_t B, int64_t L,
-                                     int64_t* out) {
-  if (k < 1 || bits == 0) return (int)cudaErrorInvalidValue;
-  const GpClusterShape shape = gp_cluster_shape(bits);
-  const int64_t nw = L - k + 1;
-  const int64_t items = nw > 0 && B > 0 ? B * ((nw + kScanTile - 1) / kScanTile) : 0;
-  out[0] = shape.blocks;
-  out[1] = 4 * (int64_t)shape.slice_words;
-  out[2] = scan2_cluster_smem(k, bits);
-  return (int)scan2_cluster_grid(k, bits, items, &out[3], &out[4]);
-}
-
 // packed: uint8[B, P] row-major (device), P >= ceil(L/4); exc_idx: int64[B,
 // E]; exc_byte: uint8[B, E]; scratch: gp_scan_packed2_scratch_bytes bytes
-// (may be null where that is 0); the rest as gp_scan_present_packed.  form
-// 0: the L2 form; 1: the cluster form (cudaErrorInvalidValue where it does
-// not run: gp_scan2_cluster_grid).  Launches on `stream`; returns
-// cudaGetLastError().
+// (may be null where that is 0); the rest as gp_scan_present_packed.
+// Launches on `stream`; returns cudaGetLastError().
 extern "C" int gp_scan_present_packed2(const void* words, uint64_t bits, int h, int k,
                                        const void* packed, int64_t B, int64_t L,
                                        int64_t P, const void* exc_idx,
                                        const void* exc_byte, int64_t E, const void* tf,
                                        const void* tr, const void* fclass, uint64_t kmul,
-                                       int form, void* scratch, void* out, void* stream) {
-  if (k < 1 || h < 1 || bits == 0 || B > 65535 || E < 0 || P * 4 < L ||
-      (form != 0 && form != 1))
+                                       void* scratch, void* out, void* stream) {
+  if (k < 1 || h < 1 || bits == 0 || B > 65535 || E < 0 || P * 4 < L)
     return (int)cudaErrorInvalidValue;
   const int64_t nw = L - k + 1;
   if (nw <= 0 || B <= 0) return 0;
   const int64_t nbytes = (nw + 7) / 8;
   const bool pow2 = (bits & (bits - 1)) == 0;
   cudaStream_t s = (cudaStream_t)stream;
-  if (form == 1) {
-    const int64_t items = B * ((nw + kScanTile - 1) / kScanTile);
-    int64_t clusters = 0, fit = 0;
-    cudaError_t err = scan2_cluster_grid(k, bits, items, &clusters, &fit);
-    if (err != cudaSuccess) return (int)err;
-    if (clusters < 1) return (int)cudaErrorInvalidValue;
-    const GpClusterShape shape = gp_cluster_shape(bits);
-    auto kernel = pow2 ? gp_scan2_cluster_kernel<true> : gp_scan2_cluster_kernel<false>;
-    err = gp_launch_cluster(
-        kernel, shape.blocks, clusters, kClusterThreads, (size_t)scan2_cluster_smem(k, bits), s,
-        (const uint32_t*)words, (uint64_t)((bits + 31) / 32), shape.slice_words, bits, h, k,
-        (const uint8_t*)packed, B, L, P, (const int64_t*)exc_idx, (const uint8_t*)exc_byte, E,
-        nw, nbytes, (const uint64_t*)tf, (const uint64_t*)tr, (const uint8_t*)fclass, kmul,
-        (uint8_t*)out);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
-  }
   if (gp_scan_packed2_scratch_bytes(k, B, L) == 0) {
     dim3 grid((unsigned)((nw + kScanTile - 1) / kScanTile), (unsigned)B);
     auto kernel = pow2 ? gp_scan2_kernel<true> : gp_scan2_kernel<false>;

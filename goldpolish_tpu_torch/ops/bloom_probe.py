@@ -10,14 +10,9 @@ for a power-of-two bit count; the one-hot matmul and byte planes exist only
 because Mosaic cannot gather across vector registers.  On Hopper the probe
 is a direct word load, so all four become the one CUDA kernel of
 csrc/bloom_probe.cu, whose bit test and probe rounds (csrc/bloom_probe.cuh)
-the scan kernels (ops/scan_conv.py) share.
-
-The kernel has two forms (csrc/bloom_probe.cu): the L2 form reads the
-filter's words from L2; the cluster form holds a filter of at most 2 MiB
-in the shared memory of a thread-block cluster and reads them over
-distributed shared memory.  `probe_form` is the rule that picks one, a
-function of the filter's size alone.  `cluster_shape` is how a filter is
-cut over a cluster, for kernel 8's cluster form too.
+the scan kernels (ops/scan_conv.py) share.  The kernel reads a row's 4
+hashes as one 16-byte load where the tuples' data_ptr() is 16-byte aligned
+(a view's may not be), else one 4-byte load a hash.
 
 Tensors: words int32[bits/32] (the little-endian u32 words of
 BloomFilter.words_u32, same bits), lo32 int32[N, h] (the low 32 bits of
@@ -27,39 +22,9 @@ version; a CUDA tensor launches the kernel or raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .cuda_build import LaunchCounter, check, lib, require_cuda
-
-# The cluster-resident filter (csrc/bloom_probe.cuh): a slice of at most
-# 128 KiB in each block's shared memory, at most 16 blocks a cluster.
-CLUSTER_SLICE_BYTES = 128 << 10
-CLUSTER_MAX_BLOCKS = 16
-CLUSTER_MAX_FILTER_BYTES = CLUSTER_SLICE_BYTES * CLUSTER_MAX_BLOCKS  # 2 MiB
-FORMS = ("l2", "cluster")
-
-
-def cluster_shape(bits: int) -> tuple[int, int]:
-    """(blocks, slice words) of a filter of `bits` bits cut over a cluster
-    (gp_cluster_shape): the fewest blocks, a power of two, whose slices of
-    at most CLUSTER_SLICE_BYTES hold it, and each block's slice in words, a
-    multiple of 4.  blocks > CLUSTER_MAX_BLOCKS: no cluster holds it."""
-    nwords = -(-bits // 32)
-    per = CLUSTER_SLICE_BYTES // 4
-    blocks = 1
-    while blocks * per < nwords and blocks <= CLUSTER_MAX_BLOCKS:
-        blocks *= 2
-    per_block = -(-nwords // blocks)
-    return blocks, -(-per_block // 4) * 4
-
-
-def probe_form(bits: int) -> str:
-    """The form kernel 1 runs at a power-of-two filter of `bits` bits:
-    "cluster" where a cluster holds the filter (at most 2 MiB), else "l2"."""
-    _check_bits(bits)
-    return "cluster" if cluster_shape(bits)[0] <= CLUSTER_MAX_BLOCKS else "l2"
 
 
 def _check_bits(bits: int) -> None:
@@ -80,13 +45,8 @@ def probe_lo32_reference(words: torch.Tensor, bits: int,
 probe_lo32_reference.calls = LaunchCounter()
 
 
-def probe_lo32(words: torch.Tensor, bits: int, lo32: torch.Tensor, *,
-               _form: str | None = None) -> torch.Tensor:
-    """present bool[N] of lo32 int32[N, h] against words int32[bits/32].
-
-    On CUDA the kernel runs in the form probe_form(bits) picks; `_form`
-    ("l2" or "cluster") overrides that, for the checks that hold both forms
-    against each other (a form that cannot run there raises)."""
+def probe_lo32(words: torch.Tensor, bits: int, lo32: torch.Tensor) -> torch.Tensor:
+    """present bool[N] of lo32 int32[N, h] against words int32[bits/32]."""
     _check_bits(bits)
     if lo32.dim() != 2:
         raise ValueError(f"lo32 must be [N, h], got shape {tuple(lo32.shape)}")
@@ -99,13 +59,6 @@ def probe_lo32(words: torch.Tensor, bits: int, lo32: torch.Tensor, *,
         raise TypeError("probe_lo32 takes int32 words and int32 lo32")
     if words.numel() * 32 < bits:
         raise ValueError("words hold fewer than `bits` bits")
-    form = probe_form(bits) if _form is None else _form
-    if form not in FORMS:
-        raise ValueError(f"unknown probe form {form!r}")
-    if form == "cluster" and cluster_shape(bits)[0] > CLUSTER_MAX_BLOCKS:
-        raise ValueError(f"no cluster holds a filter of {bits // 8} bytes")
-    # the kernel takes a row's 4 hashes as one 16-byte load where the
-    # tuples are 16-byte aligned (it reads data_ptr(): a view may not be)
     words = words.contiguous()
     lo32 = lo32.contiguous()
     n, h = lo32.shape
@@ -115,28 +68,12 @@ def probe_lo32(words: torch.Tensor, bits: int, lo32: torch.Tensor, *,
     if h < 1:
         raise ValueError("probe_lo32 needs at least one hash per row")
     rc = lib().gp_probe_lo32(
-        words.data_ptr(), bits, lo32.data_ptr(), n, h, FORMS.index(form), out.data_ptr(),
+        words.data_ptr(), bits, lo32.data_ptr(), n, h, out.data_ptr(),
         torch.cuda.current_stream(lo32.device).cuda_stream,
     )
     check(rc, "gp_probe_lo32")
     probe_lo32.launches.add()
-    if form == "cluster":
-        probe_lo32.cluster_launches.add()
     return out
 
 
 probe_lo32.launches = LaunchCounter()
-probe_lo32.cluster_launches = LaunchCounter()  # those of the cluster form
-
-
-def probe_cluster_grid(bits: int, n: int) -> dict:
-    """The cluster form's grid for n rows at `bits` on the current CUDA
-    device (gp_probe_lo32_cluster_grid): blocks a cluster, slice bytes a
-    block, clusters launched, clusters that fit at once
-    (cudaOccupancyMaxActiveClusters)."""
-    _check_bits(bits)
-    out = (ctypes.c_int64 * 4)()
-    check(lib().gp_probe_lo32_cluster_grid(bits, n, ctypes.addressof(out)),
-          "gp_probe_lo32_cluster_grid")
-    return {"cluster_blocks": out[0], "slice_bytes": out[1], "clusters": out[2],
-            "clusters_fit": out[3]}

@@ -114,21 +114,16 @@ def lib() -> ctypes.CDLL:
         L = ctypes.CDLL(_build())
         vp, i32, i64, u64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                                   ctypes.c_uint64, ctypes.c_float)
-        L.gp_probe_lo32.argtypes = [vp, u64, vp, i64, i32, i32, vp, vp]
+        L.gp_probe_lo32.argtypes = [vp, u64, vp, i64, i32, vp, vp]
         L.gp_probe_lo32.restype = i32
-        L.gp_probe_lo32_cluster_grid.argtypes = [u64, i64, vp]
-        L.gp_probe_lo32_cluster_grid.restype = i32
         L.gp_scan_present_packed.argtypes = [
             vp, u64, i32, i32, vp, i64, i64, vp, vp, vp, u64, vp, vp,
         ]
         L.gp_scan_present_packed.restype = i32
         L.gp_scan_present_packed2.argtypes = [
-            vp, u64, i32, i32, vp, i64, i64, i64, vp, vp, i64, vp, vp, vp, u64, i32, vp, vp,
-            vp,
+            vp, u64, i32, i32, vp, i64, i64, i64, vp, vp, i64, vp, vp, vp, u64, vp, vp, vp,
         ]
         L.gp_scan_present_packed2.restype = i32
-        L.gp_scan2_cluster_grid.argtypes = [i32, u64, i64, i64, vp]
-        L.gp_scan2_cluster_grid.restype = i32
         L.gp_scan_packed2_scratch_bytes.argtypes = [i32, i64, i64]
         L.gp_scan_packed2_scratch_bytes.restype = i64
         L.gp_dbg_bfs.argtypes = [

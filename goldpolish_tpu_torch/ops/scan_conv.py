@@ -48,12 +48,6 @@ padding.  The port writes the raw bytes back before hashing, so the packed
 route gives the raw route's bits on every byte value, the seeded bytes 1,
 3, 4 and 7 too (the JAX route classes every exception as seedless,
 scan_conv.py:130).  `scan_present_packed2_reference` is its plain version.
-Kernel 8 has two forms (csrc/scan_conv.cu): the L2 form probes the
-filter in L2 as kernel 2 does; the cluster form holds a filter of at most
-2 MiB in the shared memory of a thread-block cluster and probes it over
-distributed shared memory.  `scan2_form` is the rule that picks one, a
-function of the filter's size (and of k, past which the L2 form takes its
-second form).  Kernel 2 keeps its L2 form at every size.
 The filter's words go to each device through pinned memory
 (cuda_build.to_device).
 """
@@ -61,7 +55,6 @@ The filter's words go to each device through pinned memory
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import functools
 
 import numpy as np
@@ -69,7 +62,6 @@ import torch
 
 from . import nthash as nt
 from . import u64
-from .bloom_probe import CLUSTER_MAX_BLOCKS, FORMS, cluster_shape
 from .cuda_build import LaunchCounter, check, lib, require_cuda, to_device
 
 NO_CLASS = 4  # forward class of a byte without a seed
@@ -256,46 +248,10 @@ def scan_present_packed(words: torch.Tensor, bits: int, h: int, k: int,
 
 scan_present_packed.launches = LaunchCounter()
 
-# csrc/scan_conv.cu's shared-memory layout: a block of the L2 form stages
-# 2,048 windows; the roll tables take 8 KiB of static shared memory; past
-# 48 KiB (the shared memory a block takes without opting in) the L2 form
-# takes its second form; a cluster-form block runs 4 groups, each with its
-# own tile buffer, within the 227 KiB a block may opt in to.
-_SCAN_TILE = 2048
-_ROLL_TABLE_BYTES = 4 * 256 * 8
-_SMEM_BYTES = 48 << 10
-_SMEM_OPTIN_BYTES = 232448
-_CLUSTER_GROUPS = 4
-
-
-def _table_bytes(k: int) -> int:
-    return (104 * k + 256 + 15) // 16 * 16
-
-
-def scan2_cluster_smem(k: int, bits: int) -> int | None:
-    """The cluster form's dynamic shared memory a block at (k, bits), or
-    None where it does not run (gp_scan2_cluster_grid's out[2]): no cluster
-    holds the filter, the L2 form would take its second form (k past
-    ~360), or the block passes the opt-in shared memory."""
-    blocks, slice_words = cluster_shape(bits)
-    in_smem = _table_bytes(k) + _SCAN_TILE + k + 32 + _ROLL_TABLE_BYTES <= _SMEM_BYTES
-    if blocks > CLUSTER_MAX_BLOCKS or not in_smem:
-        return None
-    tile = (_SCAN_TILE + k + 32 + 15) // 16 * 16
-    smem = 4 * slice_words + _table_bytes(k) + _CLUSTER_GROUPS * tile
-    return smem if smem + _ROLL_TABLE_BYTES <= _SMEM_OPTIN_BYTES else None
-
-
-def scan2_form(bits: int, k: int) -> str:
-    """The form kernel 8 runs at a filter of `bits` bits and k: "cluster"
-    where a cluster holds the filter (at most 2 MiB) and the form fits
-    (scan2_cluster_smem), else "l2"."""
-    return "cluster" if scan2_cluster_smem(k, bits) is not None else "l2"
-
 
 def scan_present_packed2(words: torch.Tensor, bits: int, h: int, k: int, L: int,
                          packed: torch.Tensor, exc_idx: torch.Tensor,
-                         exc_byte: torch.Tensor, *, _form: str | None = None) -> torch.Tensor:
+                         exc_byte: torch.Tensor) -> torch.Tensor:
     """The scan over a 2-bit packed call (the argument order of the JAX
     scan_present_packed2_gather): packed uint8 [B, ceil(L/4)] (wider rows
     are read up to L), exc_idx int64 [B, E] and exc_byte uint8 [B, E] the
@@ -304,9 +260,7 @@ def scan_present_packed2(words: torch.Tensor, bits: int, h: int, k: int, L: int,
     [B, ceil((L-k+1)/8)], the raw scan's bits of the decoded rows.
 
     CPU tensors run the plain version; CUDA tensors launch kernel 8 on the
-    current stream, in the form scan2_form(bits, k) picks; `_form` ("l2" or
-    "cluster") overrides that, for the checks that hold both forms against
-    each other (a form that cannot run there raises)."""
+    current stream."""
     if packed.dim() != 2 or exc_idx.dim() != 2 or exc_byte.shape != exc_idx.shape \
             or exc_idx.shape[0] != packed.shape[0]:
         raise ValueError("packed must be [B, P], exc_idx and exc_byte [B, E]")
@@ -328,11 +282,6 @@ def scan_present_packed2(words: torch.Tensor, bits: int, h: int, k: int, L: int,
         raise ValueError("words hold fewer than `bits` bits")
     if packed.shape[0] > 65535:
         raise ValueError("at most 65535 rows per call")
-    form = scan2_form(bits, k) if _form is None else _form
-    if form not in FORMS:
-        raise ValueError(f"unknown scan form {form!r}")
-    if form == "cluster" and scan2_cluster_smem(k, bits) is None:
-        raise ValueError(f"kernel 8's cluster form does not run at k={k}, {bits} bits")
     packed, exc_idx, exc_byte, words = (t.contiguous()
                                         for t in (packed, exc_idx, exc_byte, words))
     b, p = packed.shape
@@ -342,38 +291,21 @@ def scan_present_packed2(words: torch.Tensor, bits: int, h: int, k: int, L: int,
         return out
     tf, tr, fclass = _device_tables(k, str(packed.device))
     L_ = lib()
-    n_scratch = L_.gp_scan_packed2_scratch_bytes(k, b, L) if form == "l2" else 0
+    n_scratch = L_.gp_scan_packed2_scratch_bytes(k, b, L)
     scratch = (torch.empty(n_scratch, dtype=torch.uint8, device=packed.device)
                if n_scratch else None)
     rc = L_.gp_scan_present_packed2(
         words.data_ptr(), bits, h, k, packed.data_ptr(), b, L, p, exc_idx.data_ptr(),
         exc_byte.data_ptr(), exc_idx.shape[1], tf.data_ptr(), tr.data_ptr(),
-        fclass.data_ptr(), _kmul(k), FORMS.index(form),
-        scratch.data_ptr() if scratch is not None else None,
+        fclass.data_ptr(), _kmul(k), scratch.data_ptr() if scratch is not None else None,
         out.data_ptr(), torch.cuda.current_stream(packed.device).cuda_stream,
     )
     check(rc, "gp_scan_present_packed2")
     scan_present_packed2.launches.add()
-    if form == "cluster":
-        scan_present_packed2.cluster_launches.add()
     return out
 
 
 scan_present_packed2.launches = LaunchCounter()
-scan_present_packed2.cluster_launches = LaunchCounter()  # those of the cluster form
-
-
-def scan2_cluster_grid(k: int, bits: int, B: int, L: int) -> dict:
-    """Kernel 8's cluster form on [B, L] rows at (k, bits) on the current
-    CUDA device (gp_scan2_cluster_grid): blocks a cluster, slice bytes a
-    block, dynamic shared memory a block (-1: the form does not run),
-    clusters launched, clusters that fit at once
-    (cudaOccupancyMaxActiveClusters)."""
-    out = (ctypes.c_int64 * 5)()
-    check(lib().gp_scan2_cluster_grid(k, bits, B, L, ctypes.addressof(out)),
-          "gp_scan2_cluster_grid")
-    return {"cluster_blocks": out[0], "slice_bytes": out[1], "smem_bytes": out[2],
-            "clusters": out[3], "clusters_fit": out[4]}
 
 
 def shard_devices(device: str, devices=None) -> list[torch.device]:
