@@ -14,8 +14,9 @@
 // row at h = 4, 33.5 MB for 2^21 rows: ~10 us of HBM), but the probes are
 // random 4-byte requests to a filter that lives in L2, up to h a row, and
 // the rate at which L2 serves those (~120 G/s, the rate kernels 2 and 8
-// reach) sets a floor far above the byte bound.  The tuples pass through
-// the same L2 (1.05 M sectors at [2^21, 4]).
+// reach on an NVIDIA H100 80GB HBM3 at 700.00 W) sets a floor far above
+// the byte bound.  The tuples pass through the same L2 (1.05 M sectors at
+// [2^21, 4]).
 //
 // What the design does about it:
 //  * a warp takes 128 rows and each lane probes 4 of them, rows 32q + lane
@@ -33,8 +34,9 @@
 //    and it measured slower than at 4.
 // A second form that held filters of at most 2 MiB in the shared memory of
 // a thread-block cluster, read over distributed shared memory, was built
-// and measured 1.65-1.9x slower than this one at 512 KiB - 2 MiB (it served
-// 61-75 G requests/s, L2 116-124 G/s), and was removed (PERF.md §6, PR 14).
+// and measured 1.65-1.9x slower than this one at 512 KiB - 2 MiB on an
+// NVIDIA H100 80GB HBM3 at 700.00 W (it served 61-75 G requests/s, L2
+// 116-124 G/s), and was removed (PERF.md §6).
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -96,9 +96,9 @@
 // that second form on it.  A form of kernel 8 that held filters of at most
 // 2 MiB in the shared memory of a thread-block cluster (read over
 // distributed shared memory, the tile fill and hashing unchanged) was
-// built and measured 2.0-3.3x slower than this one at 512 KiB - 2 MiB,
-// and was removed (PERF.md §6, PR 14): kernels 2 and 8 share this code
-// path at every filter size.
+// built and measured 2.0-3.3x slower than this one at 512 KiB - 2 MiB on
+// an NVIDIA H100 80GB HBM3 at 700.00 W, and was removed (PERF.md §6):
+// kernels 2 and 8 share this code path at every filter size.
 #include <cuda_runtime.h>
 
 #include <algorithm>
