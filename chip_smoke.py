@@ -111,16 +111,12 @@ raises and the script exits non-zero without the result line.
             byte-identical; the default arm: scan_eval launches > 0, walker
             table hits > 0; the eval-off arm: scan kernel launches > 0; the
             overlap arm: 4 contigs, at least one batch polished with device
-            filters, both fill kernels and kernel 9 launched, every fill
-            group packed (the reads hold no exception; `main_fill_routes`
-            prints both fill arms' packed and raw groups, pack2_s, H2D
-            bytes and device-filled batches) (its bytes' equality with
+            filters, both fill kernels launched (its bytes' equality with
             the default arm is reported, not required: the device filter is
             a superset of the host fill's); both jax arms: gaps found,
             site_eval, scan and kernel 7 launches > 0; the
-            device_bf_build arm: 4 of 4 batches filled on the card, both
-            fill kernels and kernel 9 launched and every fill group packed
-            (its bytes' equality with the jax arm and
+            device_bf_build arm: 4 of 4 batches filled on the card and both
+            fill kernels launched (its bytes' equality with the jax arm and
             its share of contigs equal to the truth are reported); no
             plain-version call in any CUDA arm.  Every count is set to 0
             just before an arm and read just after it.  Prints each arm's
@@ -182,23 +178,10 @@ raises and the script exits non-zero without the result line.
             single dispatch, required bit-equal; the chunked build (the
             default 2^21-base chunks) equal to single dispatch; the host
             fill (native.fill_bfs_stream) contained in it, with the share
-            of extra bits printed; the chunked build by both upload
-            routes, the 2-bit packed one (every group of these ACGT reads
-            required packed, kernel 9 decoding it) and the raw one
-            (native.pack2 unset), filters required equal, with each
-            route's H2D bytes, the packing seconds (`pack2_s`) and kernel
-            9 (unpack2_stream) on the first 2^21-base group against its
-            plain version and the group's bytes.  Times: one k's fill,
-            kernel and plain, its pass A (`count`) and pass B (`promote`,
-            with the words' zeroing) alone, kernel 9's call, and each
-            whole fill's seconds (upload and copy back included) beside
-            the host fill's.  Then two rows on the first batch's reads
-            with exceptions (`kernel_fill_routes`): a seeded IUPAC byte
-            about every 1 kbp (~2,000 a group: packed) and an N about
-            every 200 bp (~10,500 a group, over EXC_CAP = 8192: raw, but
-            for the batch's last, shorter group), each group's route
-            required by that rule, the fill equal to the raw route's and
-            the plain fill's.
+            of extra bits printed.  Times: one k's fill, kernel and
+            plain, its pass A (`count`) and pass B (`promote`, with the
+            words' zeroing) alone, and each whole fill's seconds (upload
+            and copy back included) beside the host fill's.
 5. sealer   the sealer stage alone, on the 4.64 Mbp truth with a 60-bp
             lowercase gap every 18 kbp (256 gaps) and 16 MiB filters of the
             truth's k-mers at k = 32, 28, 24, 20 (h = 4): seal_records with
@@ -227,9 +210,7 @@ raises and the script exits non-zero without the result line.
 
 Then a {"kernels": [...]} line (launches counted on the path each kernel
 serves: the main path's default arm for scan_eval, its eval-off arm for
-the scan, its packed-route arm for kernel 8, its overlap arm for the fill
-(the sum of its two passes), its overlap and device_bf_build arms together
-for kernel 9, its
+the scan, its packed-route arm for kernel 8, its overlap arm for the fill (the sum of its two wrappers), its
 device_bf_build arm for site_eval, its jax arm for dbg_extend_chain (timed
 on that arm's largest round), phase 5 for the BFS; the probe is fused
 into all of them and launches nothing on its own; each kernel's bound from
@@ -1337,132 +1318,9 @@ def filters_err(got, want) -> int:
                for g, w in zip(got, want))
 
 
-FILL_IUPAC_EVERY = 1000  # one IUPAC byte per ~1 kbp: ~2,000 a 2^21-base group
-FILL_N_EVERY = 200       # one N per ~200 bp: ~10,500 a group, over EXC_CAP
-
-
-@contextlib.contextmanager
-def raw_route():
-    """Every device-fill group sent raw while active: native.pack2 unset,
-    which the fill reads at each upload (bloom_sort._packer)."""
-    from goldpolish_tpu_torch import native
-
-    saved, native.pack2 = native.pack2, None
-    try:
-        yield
-    finally:
-        native.pack2 = saved
-
-
-def run_fill(fn, *args, **kw):
-    """(filters, seconds, upload counts) of one fill: fn(*args, **kw)
-    between two synchronisations, and what it added to each of
-    bloom_sort.UPLOADS (groups packed and raw, pack2_s, h2d_bytes)."""
-    import torch
-
-    from goldpolish_tpu_torch.ops import bloom_sort as bs
-
-    before = {key: c.value for key, c in bs.UPLOADS.items()}
-    torch.cuda.synchronize()
-    t = time.monotonic()
-    out = fn(*args, **kw)
-    torch.cuda.synchronize()
-    return out, time.monotonic() - t, {key: c.value - before[key]
-                                       for key, c in bs.UPLOADS.items()}
-
-
-def unpack2_row(reads, thrs) -> dict:
-    """Kernel 9 on the first group of a chunked fill of these reads (2^21
-    bases at most), packed as the fill packs it, against its plain version
-    on the card and against the group's bytes (acgt read as ACGT), with
-    the group's packed and raw H2D copy times."""
-    import torch
-
-    from goldpolish_tpu_torch import native
-    from goldpolish_tpu_torch.ops import bloom_sort as bs
-
-    g_reads, _t = bs._groups(reads, thrs, bs.DEFAULT_CHUNK_BASES)[0]
-    joined = np.frombuffer(b"".join(g_reads), np.uint8)
-    n = len(joined)
-    res = native.pack2(joined, bs.EXC_CAP)
-    if res is None:
-        raise AssertionError("kernel 9's group holds more than EXC_CAP exceptions")
-    args = (n, *(torch.from_numpy(a).cuda() for a in res))
-    got = bs.unpack2_stream(*args)
-    want = bs.unpack2_stream_reference(*args)
-    expect = joined.copy()
-    expect[np.isin(joined, np.frombuffer(b"acgt", np.uint8))] -= 32
-    err = max(int((got.int() - want.int()).abs().max()),
-              int(np.abs(got.cpu().numpy().astype(np.int16) - expect).max()))
-    # the group's H2D copies from pinned memory: packed (three arrays, as
-    # the fill sends them) against raw
-    pinned = tuple(torch.from_numpy(a).pin_memory() for a in res)
-    raw_pinned = torch.from_numpy(joined).pin_memory()
-    # bytes: the packed group and its exceptions read once, n written; one
-    # decode operation a base
-    return {"n": n, "exceptions": len(res[1]), "max_abs_err": err,
-            "copy_ms": time_ms(lambda: [t.to("cuda", non_blocking=True) for t in pinned], 20),
-            "raw_copy_ms": time_ms(lambda: raw_pinned.to("cuda", non_blocking=True), 20),
-            "ms": time_ms(lambda: bs.unpack2_stream(*args), 20),
-            "device_ms": device_ms(lambda: bs.unpack2_stream(*args), 20),
-            "plain_ms": time_ms(lambda: bs.unpack2_stream_reference(*args), 3, warm=1),
-            **bound(tensor_bytes(*args[1:]) + n, n), "library_ms": None}
-
-
-def with_fill_exceptions(reads, every: int, alphabet: bytes, seed: int) -> list[bytes]:
-    """The reads with a byte of `alphabet` at about every `every`-th base
-    (seeded positions over the joined stream)."""
-    rng = np.random.default_rng(seed)
-    joined = np.frombuffer(b"".join(reads), np.uint8).copy()
-    pos = rng.choice(len(joined), len(joined) // every, replace=False)
-    abc = np.frombuffer(alphabet, np.uint8)
-    joined[pos] = abc[rng.integers(0, len(abc), len(pos))]
-    ends = np.cumsum([len(r) for r in reads])
-    return [joined[e - len(r) : e].tobytes() for r, e in zip(reads, ends)]
-
-
-def fill_routes_row(label: str, reads, thrs, args: tuple, route: str) -> dict:
-    """A fill row on exception-laden reads: the chunked fill by its own
-    routes (each group by the EXC_CAP rule, every group but the batch's
-    last expected `route`), against the raw route and the plain fill,
-    filters required equal; kernel 9 timed on its first group where that
-    goes packed."""
-    from goldpolish_tpu_torch.ops import bloom_sort as bs
-
-    full = (reads, thrs, *args)
-    got, fill_s, routes = run_fill(bs.device_fill_bfs_sorted, *full)
-    with raw_route():
-        raw, raw_s, raw_routes = run_fill(bs.device_fill_bfs_sorted, *full)
-    want, plain_s, _r = run_fill(bs.device_fill_bfs_sorted_reference, *full, device="cuda")
-    groups = bs._groups(reads, thrs, bs.DEFAULT_CHUNK_BASES)
-    acgt = np.frombuffer(b"ACGTacgt", np.uint8)
-    n_exc = [int(np.isin(np.frombuffer(b"".join(g), np.uint8), acgt, invert=True).sum())
-             for g, _t in groups]
-    row = {"label": label, "bases": sum(map(len, reads)), "groups": len(groups),
-           "exceptions_per_group": n_exc, "route": route, "packed": routes["packed"],
-           "raw": routes["raw"], "h2d_bytes": routes["h2d_bytes"],
-           "raw_h2d_bytes": raw_routes["h2d_bytes"], "pack2_s": routes["pack2_s"],
-           "fill_s": fill_s, "raw_fill_s": raw_s, "plain_fill_s": plain_s,
-           "max_abs_err": max(filters_err(got, raw), filters_err(got, want)),
-           "unpack2": unpack2_row(reads, thrs) if route == "packed" else None}
-    emit(phase="kernel_fill_routes", **row)
-    if row["max_abs_err"]:
-        raise AssertionError(f"the fill's routes disagree on {label}")
-    # each group by the rule; the row's full-size groups all take `route`
-    # (a batch's last, shorter group may hold fewer exceptions)
-    want_routes = (sum(e <= bs.EXC_CAP for e in n_exc), sum(e > bs.EXC_CAP for e in n_exc))
-    if (row["packed"], row["raw"]) != want_routes or any(
-            (e <= bs.EXC_CAP) != (route == "packed") for e in n_exc[:-1]):
-        raise AssertionError(f"{label}: groups not routed as predicted: {row}")
-    if row["unpack2"] and row["unpack2"]["max_abs_err"]:
-        raise AssertionError(f"kernel 9 disagrees with plain on {label}")
-    return row
-
-
 def phase_fill(argv, ids, work):
-    """Kernel 5 against its plain version on bulk's batches, and the
-    packed upload (kernel 9) against the raw one (see the module
-    docstring); returns (one row per batch, the two exception rows)."""
+    """Kernel 5 against its plain version on bulk's batches (see the module
+    docstring); returns one row per batch."""
     import torch
 
     from goldpolish_tpu_torch import cli
@@ -1473,19 +1331,24 @@ def phase_fill(argv, ids, work):
     builder = bulk.make_builder(cfg, work)
     h, cbf = builder.hash_num, builder.cbf_bytes
 
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t
+
     rows = []
     for name in ids:
         reads, thrs = builder.read_stream([name])
         bf_bytes = builder._batch_bf_bytes([name])
         args = (reads, thrs, K_VALUES, h, cbf, bf_bytes)
-        got, fill_s, _r = run_fill(bs.device_fill_bfs_sorted, *args,
-                                   chunk_bases=SINGLE_DISPATCH)
-        want, plain_s, _r = run_fill(bs.device_fill_bfs_sorted_reference, *args,
-                                     chunk_bases=SINGLE_DISPATCH, device="cuda")
-        chunked, chunked_s, routes = run_fill(bs.device_fill_bfs_sorted, *args)
-        with raw_route():
-            raw, raw_s, raw_routes = run_fill(bs.device_fill_bfs_sorted, *args)
-        host, host_s, _r = run_fill(lambda: builder.build_batch([name]).bfs)
+        got, fill_s = timed(lambda: bs.device_fill_bfs_sorted(
+            *args, chunk_bases=SINGLE_DISPATCH))
+        want, plain_s = timed(lambda: bs.device_fill_bfs_sorted_reference(
+            *args, chunk_bases=SINGLE_DISPATCH, device="cuda"))
+        chunked, chunked_s = timed(lambda: bs.device_fill_bfs_sorted(*args))
+        host, host_s = timed(lambda: builder.build_batch([name]).bfs)
         st = bs.upload_stream(reads, thrs, torch.device("cuda"))
         totals = torch.zeros(cbf, dtype=torch.int32, device="cuda")
         words = torch.zeros(bf_bytes // 4, dtype=torch.int32, device="cuda")
@@ -1512,25 +1375,20 @@ def phase_fill(argv, ids, work):
             / max(1, int(np.unpackbits(hb.array).sum()))
             for d, hb in zip(got, host)
         ]
-        n_groups = len(bs._groups(reads, thrs, bs.DEFAULT_CHUNK_BASES))
         row = {
             "batch": name, "reads": len(reads), "bases": sum(map(len, reads)),
             "thresholds": sorted(set(thrs)), "cbf_bytes": cbf, "bf_bytes": bf_bytes,
-            "chunks": n_groups,
+            "chunks": len(bs._groups(reads, thrs, bs.DEFAULT_CHUNK_BASES)),
             "k": K_VALUES, "equal": filters_err(got, want) == 0,
             "max_abs_err": filters_err(got, want),
             "chunked_equal": filters_err(chunked, got) == 0,
-            "routes_equal": filters_err(raw, chunked) == 0,
             "host_contained": all(not np.any(hb.array & ~d.array)
                                   for d, hb in zip(got, host)),
             "extra_bit_share": extra,
             "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "count_ms": count_ms,
             "promote_ms": promote_ms, **fill_bound,
             "fill_s": fill_s, "plain_fill_s": plain_s,
-            "chunked_fill_s": chunked_s, "raw_chunked_fill_s": raw_s, "host_fill_s": host_s,
-            "packed_groups": routes["packed"], "raw_groups": raw_routes["raw"],
-            "h2d_bytes": routes["h2d_bytes"], "raw_h2d_bytes": raw_routes["h2d_bytes"],
-            "pack2_s": routes["pack2_s"], "unpack2": unpack2_row(reads, thrs),
+            "chunked_fill_s": chunked_s, "host_fill_s": host_s,
         }
         rows.append(row)
         emit(phase="kernel_bloom_sort", **row)
@@ -1538,25 +1396,9 @@ def phase_fill(argv, ids, work):
             raise AssertionError(f"bloom_sort kernel disagrees with plain on {name}")
         if not row["chunked_equal"]:
             raise AssertionError(f"the chunked device fill differs on {name}")
-        if not row["routes_equal"]:
-            raise AssertionError(f"the fill's packed and raw routes differ on {name}")
-        if (routes["packed"], routes["raw"]) != (n_groups, 0):
-            raise AssertionError(f"the ACGT reads of {name} did not all go packed: {routes}")
-        if row["unpack2"]["max_abs_err"]:
-            raise AssertionError(f"kernel 9 disagrees with plain on {name}")
         if not row["host_contained"]:
             raise AssertionError(f"the device fill misses host-fill bits on {name}")
-    # the first batch's reads with exceptions: one group's worth under the
-    # cap (packed) and over it (raw)
-    reads, thrs = builder.read_stream([ids[0]])
-    args = (K_VALUES, h, cbf, builder._batch_bf_bytes([ids[0]]))
-    exc_rows = [
-        fill_routes_row("iupac_every_1kbp", with_fill_exceptions(
-            reads, FILL_IUPAC_EVERY, b"RYSWKMBDHV", SEED + 11), thrs, args, "packed"),
-        fill_routes_row("n_every_200bp", with_fill_exceptions(
-            reads, FILL_N_EVERY, b"N", SEED + 12), thrs, args, "raw"),
-    ]
-    return rows, exc_rows
+    return rows
 
 
 class SealerTally:
@@ -1694,12 +1536,10 @@ class PackTally:
     """The scan pipe's row packing while active: wraps native.pack2 (the
     pipe binds it when it is made) and sums its seconds, the rows it
     packed and the rows that overflowed EXC_BUCKET (whose calls went
-    raw).  The device fill's packing (exception cap bloom_sort.EXC_CAP)
-    passes untallied: bloom_sort.UPLOADS counts it."""
+    raw)."""
 
     def __enter__(self):
         from goldpolish_tpu_torch import native
-        from goldpolish_tpu_torch.polish.scanpipe import ScanPipe
 
         self.rows = self.overflows = 0
         self.seconds = 0.0
@@ -1708,11 +1548,9 @@ class PackTally:
             return self
         lock = threading.Lock()
 
-        def pack2(codes, exc_cap, **kw):
-            if exc_cap != ScanPipe.EXC_BUCKET:
-                return self._saved(codes, exc_cap, **kw)
+        def pack2(*args, **kw):
             t = time.perf_counter()
-            res = self._saved(codes, exc_cap, **kw)
+            res = self._saved(*args, **kw)
             with lock:
                 self.seconds += time.perf_counter() - t
                 self.rows += 1
@@ -1747,8 +1585,6 @@ def main_counters() -> dict:
         "dbg_extend_launches": de.dbg_extend_chain.launches,
         "probe_kernel_launches": bp.probe_lo32.launches,
         **{f"fill_{op.__name__}_launches": op.launches for op in bs.KERNEL_OPS},
-        # the device fill's uploads: groups packed and raw, pack2_s, h2d_bytes
-        **{f"fill_{key}": c for key, c in bs.UPLOADS.items()},
         "plain_scan_eval": se.scan_eval_reference.calls,
         "plain_scan": sc.scan_present_packed_reference.calls,
         "plain_scan2": sc.scan_present_packed2_reference.calls,
@@ -2620,7 +2456,7 @@ def phase_main(rng):
     try:
         inp = prepare_main(rng, work)
         truths = inp["truths"]
-        fills, fill_exc = phase_fill(cli_argv(inp, "fill"), [n for n, _t in truths], work)
+        fills = phase_fill(cli_argv(inp, "fill"), [n for n, _t in truths], work)
         # the first arm runs through the CLI's defaults: no --backend flag
         on = run_arm(inp, "default", {**FORCE, "GPTPU_DEVICE_EVAL": None})
         off = run_arm(inp, "hybrid_eval_off", {**FORCE, "GPTPU_DEVICE_EVAL": "0"},
@@ -2673,16 +2509,6 @@ def phase_main(rng):
         fill_launches = [ov[f"fill_{op.__name__}_launches"] for op in bs.KERNEL_OPS]
         if min(fill_launches) <= 0:
             raise AssertionError(f"the overlap arm missed a fill kernel: {fill_launches}")
-        # the main path's reads are ACGT (no exception): every group of a
-        # device fill goes packed and kernel 9 decodes it
-        routes = {name: {key: arm[f"fill_{key}"] for key in bs.UPLOADS}
-                  | {"unpack2_launches": arm["fill_unpack2_stream_launches"],
-                     "device_filled_batches": arm["device_filled_batches"]}
-                  for name, arm in (("fill_overlap", ov), ("jax_device_bf_build", dbb))}
-        emit(phase="main_fill_routes", **routes)
-        for name, r in routes.items():
-            if r["raw"] or r["packed"] <= 0 or r["unpack2_launches"] != r["packed"]:
-                raise AssertionError(f"{name}: a fill group of no exception went raw: {r}")
         if jax["bytes"] != host["bytes"]:
             raise AssertionError("the jax arm's output differs from the numpy backend")
         for arm in (jax, dbb):
@@ -2716,9 +2542,7 @@ def phase_main(rng):
                     "scan_present_packed": off["scan_kernel_launches"],
                     "scan_present_packed2": packed_route["launches"],
                     "probe_lo32": on["probe_kernel_launches"],
-                    "bloom_sort_fill": sum(fill_launches[:2]),
-                    "unpack2_stream": ov["fill_unpack2_stream_launches"]
-                    + dbb["fill_unpack2_stream_launches"],
+                    "bloom_sort_fill": sum(fill_launches),
                     "site_eval": dbb["site_eval_launches"],
                     "dbg_extend": jax["dbg_extend_launches"]}
         # the paths of the CLI and the stage tools beside bulk's main path,
@@ -2728,7 +2552,7 @@ def phase_main(rng):
                  "targeted": phase_targeted(inp), "tools": phase_tools(inp),
                  "sharded": phase_sharded(inp),
                  "multihost": phase_multihost(inp, {"default": on, "jax": jax})}
-        return launches, truths, fills + fill_exc, ext_main, paths
+        return launches, truths, fills, ext_main, paths
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3227,11 +3051,6 @@ def main() -> int:
     bfs_launches, bfs_rows, ext_rows = phase_sealer(truths)
     first = scans[0]
     probe = next(r for r in probes if r["filter_bytes"] == FILTER_BITS // 8)
-    # kernel 9 on the first batch's first group, or on the first group
-    # whose profiler session recorded its device time
-    unpack2 = next((r["unpack2"] for r in fills
-                    if r["unpack2"] and r["unpack2"]["device_ms"] is not None),
-                   fills[0]["unpack2"])
     # no single PyTorch call computes any of these functions: library_ms null
     # (PERF.md's kernel table gives the reason for each), but for kernel 1
     # a yardstick: one torch.take of all 4 words a row (probe_size_rows)
@@ -3295,15 +3114,6 @@ def main() -> int:
             "ms": fills[0]["ms"][0], "plain_ms": fills[0]["plain_ms"][0],
             "device_ms": fills[0]["device_ms"][0],
             **{key: fills[0][key] for key in keys[1:]}, "library_ms": None,
-        },
-        {
-            "name": "unpack2_stream", "route": "cuda",
-            "source": "goldpolish_tpu_torch/csrc/unpack2.cu",
-            "replaces": "goldpolish_tpu/ops/bloom_sort.py:145",
-            "launches": launches["unpack2_stream"],
-            "max_abs_err": max(r["unpack2"]["max_abs_err"] for r in fills if r["unpack2"]),
-            "ms": unpack2["ms"], "plain_ms": unpack2["plain_ms"],
-            **{key: unpack2[key] for key in keys}, "library_ms": None,
         },
         {
             "name": "site_eval", "route": "cuda",

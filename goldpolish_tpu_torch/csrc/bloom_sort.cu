@@ -22,9 +22,9 @@
 // chunked build, with `_stream_meta` (:114; the binary search of the read
 // offsets below takes its place), the raw route's `_stream_onehot_raw`
 // (:167) and `_distinct_runs` (:177) inside them.  The packed route's
-// `_stream_onehot_packed` (:145) is kernel 9 (unpack2.cu), which decodes a
-// packed upload into the raw bytes these passes read.  The plain torch
-// versions are count_reference and promote_reference in
+// `_stream_onehot_packed` (:145) has no counterpart: the upload is always
+// the raw bytes (ops/bloom_sort.py says why).  The plain torch versions
+// are count_reference and promote_reference in
 // goldpolish_tpu_torch/ops/bloom_sort.py.
 //
 // Why the bits are the JAX program's: it sorts the window hashes so that a

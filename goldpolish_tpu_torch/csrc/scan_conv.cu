@@ -92,11 +92,8 @@
 // bound, the random L2 requests of the probes: the decode and the E
 // entries per block add ~1% to them.  Where kernel 2 takes its second form
 // (k past ~360), kernel 8 decodes the rows into device scratch [B, L]
-// (gp_scan_packed2_scratch_bytes) with the two steps of unpack2.cuh (every
-// packed byte to four code bytes, then the exceptions' raw bytes; kernel 9
-// decodes the device fill's packed upload with the same code) and runs
-// that second form on it.  gp_decode4, which the tile fill uses, is that
-// header's too.  A form of kernel 8 that held filters of at most
+// (gp_scan_packed2_scratch_bytes), writes the exceptions there and runs
+// that second form on it.  A form of kernel 8 that held filters of at most
 // 2 MiB in the shared memory of a thread-block cluster (read over
 // distributed shared memory, the tile fill and hashing unchanged) was
 // built and measured 2.0-3.3x slower than this one at 512 KiB - 2 MiB on
@@ -108,7 +105,6 @@
 #include <cstdint>
 
 #include "nthash_roll.cuh"
-#include "unpack2.cuh"
 
 namespace {
 
@@ -209,6 +205,17 @@ gp_scan_kernel(const uint32_t* __restrict__ words, uint64_t bits, int h, int k,
   }
 }
 
+// The four bases of a packed byte as four code bytes (little-endian).
+__device__ __forceinline__ uint32_t gp_decode4(uint32_t packed) {
+  uint32_t out = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t c = (packed >> (2 * q)) & 3u;
+    out |= ((0x54474341u >> (8 * c)) & 0xffu) << (8 * q);  // "ACGT"[c]
+  }
+  return out;
+}
+
 // Kernel 8 (smem form): kernel 2 with its tile filled from the packed row.
 template <bool kPow2>
 __global__ void __launch_bounds__(kScanThreads)
@@ -270,6 +277,29 @@ gp_scan2_kernel(const uint32_t* __restrict__ words, uint64_t bits, int h, int k,
   const uint8_t* s = s_tile + threadIdx.x * kRun;
   scan_run<kPow2>(words, bits, h, k, w, nw, nbytes, row, kmul, t, s_r,
                   [s](int j) { return s[j]; }, out);
+}
+
+// Kernel 8's second form, step 1: every packed byte of [B, P] to its (up
+// to) four code bytes of scratch [B, L].
+__global__ void gp_unpack2_kernel(const uint8_t* __restrict__ packed, int64_t B, int64_t L,
+                                  int64_t P, uint8_t* __restrict__ codes) {
+  const int64_t n = B * P;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t row = i / P, j = 4 * (i % P);
+    const uint32_t v = gp_decode4(packed[i]);
+    for (int q = 0; q < 4 && j + q < L; ++q) codes[row * L + j + q] = (uint8_t)(v >> (8 * q));
+  }
+}
+
+// Step 2: the exceptions' raw bytes over the decoded rows.
+__global__ void gp_exceptions_kernel(const int64_t* __restrict__ exc_idx,
+                                     const uint8_t* __restrict__ exc_byte, int64_t B,
+                                     int64_t E, int64_t L, uint8_t* __restrict__ codes) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * E) return;
+  const uint64_t p = (uint64_t)exc_idx[i];
+  if (p < (uint64_t)L) codes[(i / E) * L + (int64_t)p] = exc_byte[i];
 }
 
 }  // namespace
@@ -336,9 +366,12 @@ extern "C" int gp_scan_present_packed2(const void* words, uint64_t bits, int h, 
   }
   if (scratch == nullptr) return (int)cudaErrorInvalidValue;
   uint8_t* codes = (uint8_t*)scratch;
-  const int rc = gp_unpack2_launch((const uint8_t*)packed, B, L, P, (const int64_t*)exc_idx,
-                                   (const uint8_t*)exc_byte, E, codes, s);
-  if (rc != 0) return rc;
+  const int64_t n = B * P;
+  gp_unpack2_kernel<<<(unsigned)std::min<int64_t>((n + 255) / 256, 4096), 256, 0, s>>>(
+      (const uint8_t*)packed, B, L, P, codes);
+  if (B * E > 0)
+    gp_exceptions_kernel<<<(unsigned)((B * E + 255) / 256), 256, 0, s>>>(
+        (const int64_t*)exc_idx, (const uint8_t*)exc_byte, B, E, L, codes);
   dim3 grid((unsigned)((nw + kScanTile - 1) / kScanTile), (unsigned)B);
   auto kernel = pow2 ? gp_scan_kernel<true, false> : gp_scan_kernel<false, false>;
   kernel<<<grid, kScanThreads, 0, s>>>((const uint32_t*)words, bits, h, k, codes, B, L,

@@ -33,50 +33,36 @@ row grid), and slots and bits are indexed in 64 bits (the JAX build casts
 them to int32).  The row grid (`PackedReadStream.codes`) is an XLA shape
 bucket and has no counterpart.
 
-The upload (`upload_group`, the JAX `_stream_arrays`) keeps the JAX rule
-per group of reads: where the native packer loads, the group's reads,
-joined, go 2-bit packed (native.pack2, a quarter of the bytes) with up to
-EXC_CAP = 8192 non-ACGT bytes beside them, packed straight into reusable
-pinned buffers, and kernel 9 (`unpack2_stream`, csrc/unpack2.cu) decodes
-them on the device into the raw bytes that kernel 5 reads; a group of more
-exceptions, or any group where the native library is unavailable, goes as
-raw bytes from a pinned buffer (`upload_stream`).  Any other failure of the
-packer or the decode raises.  `UPLOADS` counts the routes, the packing
-seconds and the bytes sent.
+The upload is always the raw read bytes, from a pinned buffer.  The JAX
+`_stream_arrays` sends a group 2-bit packed (with up to 8192 non-ACGT
+bytes beside it) and expands it on the device (`_stream_onehot_packed`);
+that route has no counterpart here.  It gives the raw route's filters
+(but for bytes 1, 3, 4 and 7, which it classes as seedless, ROADMAP.md
+queue 3), and on the H100 packing a batch costs far more host time than
+it saves in copies (ROADMAP.md, "Not to port").
 
-`count`, `promote` and `unpack2_stream` launch their kernels for CUDA
-tensors and run their plain torch versions (`*_reference`, int64 lanes,
-ops/u64.py) for CPU tensors.  `device_fill_bfs_sorted_reference` runs the
-whole fill with the plain versions on any device.  The names keep the JAX
-module's.
+`count` and `promote` launch csrc/bloom_sort.cu for CUDA tensors and run
+their plain torch versions (`*_reference`, int64 lanes, ops/u64.py) for CPU
+tensors.  `device_fill_bfs_sorted_reference` runs the whole fill with the
+plain versions on any device.  The names keep the JAX module's.
 """
 
 from __future__ import annotations
 
 import os
-import threading
-import time
 
 import numpy as np
 import torch
 
-from .. import native
 from . import bloom, u64
 from .cuda_build import LaunchCounter, check, lib, require_cuda
-from .scan_conv import (_device_tables, _kmul, bit_index, strand_hashes_reference,
-                        unpack2_reference)
+from .scan_conv import _device_tables, _kmul, bit_index, strand_hashes_reference
 
 KHALO = 32      # the JAX build's row halo; it supports any k <= KHALO + 1
 MAX_THR = 15    # per-read thresholds must fit 4 bits (reference caps at 13)
 # default chunk bound of the chunked build; GPTPU_SORT_CHUNK_BASES
 # overrides it.  Results are bit-identical at any chunking.
 DEFAULT_CHUNK_BASES = 1 << 21
-EXC_CAP = 8192  # the JAX _EXC_CAP: non-ACGT bytes sent beside a packed group
-# each upload's route (packed or raw groups), the host seconds of packing
-# and the bytes sent to the device (the reads' bytes or their packed form
-# and exceptions, offsets and thresholds)
-UPLOADS = {"packed": LaunchCounter(), "raw": LaunchCounter(),
-           "pack2_s": LaunchCounter(), "h2d_bytes": LaunchCounter()}
 
 
 def _hashes(base: torch.Tensor, k: int, h: int) -> list[torch.Tensor]:
@@ -158,17 +144,6 @@ def promote_reference(codes, offsets, thrs, k: int, delta: int, h: int,
 promote_reference.calls = LaunchCounter()
 
 
-def unpack2_stream_reference(n: int, packed: torch.Tensor, exc_idx: torch.Tensor,
-                             exc_byte: torch.Tensor) -> torch.Tensor:
-    """Plain torch version of kernel 9 (any device): scan_conv's plain
-    decode of one row."""
-    unpack2_stream_reference.calls.add()
-    return unpack2_reference(n, packed[None], exc_idx[None], exc_byte[None])[0]
-
-
-unpack2_stream_reference.calls = LaunchCounter()
-
-
 # -- the kernels ---------------------------------------------------------------
 
 
@@ -240,44 +215,10 @@ def promote(codes, offsets, thrs, k: int, delta: int, h: int, cbf_size: int,
 promote.launches = LaunchCounter()
 
 
-def unpack2_stream(n: int, packed: torch.Tensor, exc_idx: torch.Tensor,
-                   exc_byte: torch.Tensor) -> torch.Tensor:
-    """A packed group decoded: packed uint8[ceil(n/4)] (base i in bits
-    2 * (i & 3) of byte i >> 2, A C G T = 0-3), exc_idx int64[E] and
-    exc_byte uint8[E] the positions (in [0, n), none twice) and raw bytes of
-    the other bytes -> codes uint8[n].  CPU tensors run the plain version;
-    CUDA tensors launch `gp_unpack2_stream` on the current stream."""
-    if packed.dim() != 1 or exc_idx.dim() != 1 or exc_byte.shape != exc_idx.shape:
-        raise ValueError("unpack2_stream takes packed [P], exc_idx and exc_byte [E]")
-    if packed.numel() != (n + 3) // 4:
-        raise ValueError(f"unpack2_stream: {packed.numel()} packed bytes for n={n}")
-    if packed.device.type == "cpu":
-        return unpack2_stream_reference(n, packed, exc_idx, exc_byte)
-    require_cuda(packed, "unpack2_stream")
-    if (packed.dtype, exc_idx.dtype, exc_byte.dtype) != (torch.uint8, torch.int64,
-                                                         torch.uint8):
-        raise TypeError("unpack2_stream takes uint8 packed bytes and exception bytes, "
-                        "int64 exception positions")
-    if any(t.device != packed.device or not t.is_contiguous()
-           for t in (packed, exc_idx, exc_byte)):
-        raise ValueError("unpack2_stream: tensors on different devices or not contiguous")
-    codes = torch.empty(n, dtype=torch.uint8, device=packed.device)
-    rc = lib().gp_unpack2_stream(packed.data_ptr(), n, exc_idx.data_ptr(),
-                                 exc_byte.data_ptr(), exc_idx.numel(), codes.data_ptr(),
-                                 torch.cuda.current_stream(packed.device).cuda_stream)
-    check(rc, "gp_unpack2_stream")
-    unpack2_stream.launches.add()
-    return codes
-
-
-unpack2_stream.launches = LaunchCounter()
-
-
 # -- the fill -----------------------------------------------------------------
 
-# the two passes and the packed upload's decode
-KERNEL_OPS = (count, promote, unpack2_stream)
-PLAIN_OPS = (count_reference, promote_reference, unpack2_stream_reference)
+KERNEL_OPS = (count, promote)
+PLAIN_OPS = (count_reference, promote_reference)
 
 
 def fill_k(ops, streams, k: int, delta: int, h: int, cbf_size: int, bits: int):
@@ -293,124 +234,18 @@ def fill_k(ops, streams, k: int, delta: int, h: int, cbf_size: int, bits: int):
     return words
 
 
-def _upload_meta(reads: list[bytes], thrs: list[int], device: torch.device):
-    """(offsets int64[n_reads + 1], thrs uint8[n_reads]) on `device`."""
+def upload_stream(reads: list[bytes], thrs: list[int], device: torch.device):
+    """(codes uint8[n], offsets int64[n_reads + 1], thrs uint8[n_reads]) on
+    `device`; the bases go through a pinned buffer to a CUDA device."""
     lens = np.fromiter((len(r) for r in reads), np.int64, len(reads))
     offsets = np.zeros(len(reads) + 1, np.int64)
     np.cumsum(lens, out=offsets[1:])
-    return (torch.from_numpy(offsets).to(device),
-            torch.from_numpy(np.asarray(thrs, np.uint8)).to(device))
-
-
-def upload_stream(reads: list[bytes], thrs: list[int], device: torch.device,
-                  joined: bytes | None = None):
-    """(codes uint8[n], offsets int64[n_reads + 1], thrs uint8[n_reads]) on
-    `device`, the raw route; the bases (`joined`, the reads joined, if the
-    caller has it) go through a pinned buffer to a CUDA device."""
-    joined = b"".join(reads) if joined is None else joined
-    codes = torch.frombuffer(bytearray(joined), dtype=torch.uint8)
+    codes = torch.frombuffer(bytearray(b"".join(reads)), dtype=torch.uint8)
     if device.type == "cuda":
         codes = codes.pin_memory()
-    return (codes.to(device, non_blocking=True), *_upload_meta(reads, thrs, device))
-
-
-class _PinnedPacks:
-    """Reusable pinned host buffers (packed bytes, exception positions and
-    bytes) that a group is packed into for a CUDA device.  A set serves one
-    upload at a time and is written again only after the event of the
-    copies that last read it: fills run on side streams, the overlap arm's
-    fill thread beside the batches' polishing."""
-
-    _KEEP = 4  # free sets kept; a fifth is let go (the allocator frees it safely)
-
-    def __init__(self) -> None:
-        self._free: list = []
-        self._lock = threading.Lock()
-
-    def take(self, n: int) -> tuple:
-        need = (n + 3) // 4
-        with self._lock:
-            i = next((i for i, s in enumerate(self._free) if s[0].numel() >= need), None)
-            slot = self._free.pop(i) if i is not None else None
-        if slot is None:
-            return (torch.empty(1 << max(need - 1, 0).bit_length(), dtype=torch.uint8,
-                                pin_memory=True),
-                    torch.empty(EXC_CAP, dtype=torch.int64, pin_memory=True),
-                    torch.empty(EXC_CAP, dtype=torch.uint8, pin_memory=True))
-        *bufs, event = slot
-        if event is not None:
-            event.synchronize()
-        return tuple(bufs)
-
-    def give(self, bufs: tuple, event) -> None:
-        with self._lock:
-            if len(self._free) < self._KEEP:
-                self._free.append((*bufs, event))
-
-
-_PACKS = _PinnedPacks()
-
-
-def _packer():
-    """native.pack2 where the native library loads, else None: the group
-    goes raw (the scan pipe's test).  native.pack2 set to None also sends
-    every group raw (chip_smoke.raw_route compares the two routes so)."""
-    try:
-        native.lib()
-    except (native.NativeUnavailable, OSError):
-        return None
-    return native.pack2
-
-
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def _upload_packed(pack2, joined: bytes, reads, thrs, device: torch.device, decode):
-    """upload_group's packed route, or None where the group holds more than
-    EXC_CAP non-ACGT bytes."""
-    n, cuda = len(joined), device.type == "cuda"
-    bufs = _PACKS.take(n) if cuda else None
-    t = time.perf_counter()
-    res = pack2(np.frombuffer(joined, np.uint8), EXC_CAP,
-                out=tuple(b.numpy() for b in bufs) if cuda else None)
-    UPLOADS["pack2_s"].add(time.perf_counter() - t)
-    if res is None:
-        if cuda:
-            _PACKS.give(bufs, None)
-        return None
-    if cuda:
-        m = len(res[1])
-        sent = tuple(b.to(device, non_blocking=True)
-                     for b in (bufs[0][: (n + 3) // 4], bufs[1][:m], bufs[2][:m]))
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(device))
-        _PACKS.give(bufs, event)
-    else:
-        sent = tuple(torch.from_numpy(a) for a in res)
-    meta = _upload_meta(reads, thrs, device)
-    UPLOADS["packed"].add()
-    UPLOADS["h2d_bytes"].add(_nbytes(*sent, *meta))
-    return (decode(n, *sent), *meta)
-
-
-def upload_group(reads: list[bytes], thrs: list[int], device: torch.device,
-                 decode=unpack2_stream):
-    """One group's (codes, offsets, thrs) on `device`, by the JAX
-    `_stream_arrays` rule: packed where the packer loads and the group holds
-    at most EXC_CAP non-ACGT bytes, then decoded on the device by `decode`
-    (kernel 9, or its plain version for the reference fill); raw
-    otherwise."""
-    joined = b"".join(reads)
-    pack2 = _packer()
-    if pack2 is not None:
-        stream = _upload_packed(pack2, joined, reads, thrs, device, decode)
-        if stream is not None:
-            return stream
-    stream = upload_stream(reads, thrs, device, joined)
-    UPLOADS["raw"].add()
-    UPLOADS["h2d_bytes"].add(_nbytes(*stream))
-    return stream
+    return (codes.to(device, non_blocking=True),
+            torch.from_numpy(offsets).to(device),
+            torch.from_numpy(np.asarray(thrs, np.uint8)).to(device))
 
 
 def _groups(reads, thrs, chunk_bases: int):
@@ -472,7 +307,7 @@ def _fill(ops, reads, thrs, k_values, hash_num, cbf_bytes, bf_bytes, chunk_bases
         return [bloom.BloomFilter(bf_bytes, hash_num, k) for k in k_values]
     groups = [(reads, thrs)] if total_bases <= chunk_bases else \
         _groups(reads, thrs, chunk_bases)
-    streams = [upload_group(g_reads, g_thrs, device, ops[2]) for g_reads, g_thrs in groups]
+    streams = [upload_stream(g_reads, g_thrs, device) for g_reads, g_thrs in groups]
     return [
         _to_filter(fill_k(ops, streams, k, ki - 2, hash_num, cbf_bytes, bf_bytes * 8),
                    bf_bytes, hash_num, k)

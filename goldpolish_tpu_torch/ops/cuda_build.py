@@ -36,19 +36,18 @@ build_log = ""  # nvcc's output (-Xptxas -v) of the build this process made
 
 
 class LaunchCounter:
-    """A thread-safe count (batches polish on several threads): of launches
-    by default, or of any amount given to `add` (bytes, seconds)."""
+    """A thread-safe integer count (batches polish on several threads)."""
 
     def __init__(self) -> None:
         self._n = 0
         self._lock = threading.Lock()
 
-    def add(self, amount: float = 1) -> None:
+    def add(self) -> None:
         with self._lock:
-            self._n += amount
+            self._n += 1
 
     @property
-    def value(self) -> float:
+    def value(self) -> int:
         return self._n
 
     def reset(self) -> None:
@@ -159,8 +158,6 @@ def lib() -> ctypes.CDLL:
         L.gp_dbg_extend.argtypes = [vp, u64, i32, i32, vp, i64, i64, i32, i64, vp,
                                     vp, vp, vp, u64, vp]
         L.gp_dbg_extend.restype = i32
-        L.gp_unpack2_stream.argtypes = [vp, i64, vp, vp, i64, vp, vp]
-        L.gp_unpack2_stream.restype = i32
         _LIB = L
         return L
 

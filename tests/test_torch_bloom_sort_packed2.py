@@ -1,18 +1,19 @@
-"""The device fill's 2-bit packed upload (ops/bloom_sort.upload_group and
-kernel 9, unpack2_stream) against the JAX package's device_fill_bfs_sorted,
-on the CPU.
+"""The port's device fill, which always uploads raw bytes, against the JAX
+package's device_fill_bfs_sorted by both of its upload routes, on the CPU.
 
-The same seeded reads (lowercase acgt, N runs and IUPAC bytes among them;
-not bytes 1, 3, 4 and 7, whose classes the two JAX routes give differently,
-ROADMAP.md queue 3) go through the JAX build by both of its upload routes
-(its packed route as it is, and its raw route with goldpolish_tpu.native.pack2
-returning None) and through the port's fill, which packs a group of at most
-EXC_CAP = 8192 non-ACGT bytes and sends a group of more raw, as the JAX
-build does.  Filters must be equal byte for byte (tolerance 0: integer
-hashing, counting and bit sets).  Streams stay under one JAX row bucket
-(16 kbp) a group, so the JAX programs compile once per k.  The `cuda` cases
-hold kernel 9 against its plain version, and the CUDA fill's packed route
-against its raw route, on the card, and skip here."""
+The JAX build sends a group of reads 2-bit packed, with up to _EXC_CAP =
+8192 non-ACGT bytes beside it, whenever its native packer loads, and raw
+bytes for a group of more (`_stream_arrays`).  The port has no packed
+route: the same seeded reads (lowercase acgt, N runs and IUPAC bytes among
+them; not bytes 1, 3, 4 and 7, which the JAX packed route classes as
+seedless, ROADMAP.md queue 3) go through the JAX build by its packed route
+as it is and by its raw route (goldpolish_tpu.native.pack2 returning None),
+and the port's filters must equal both byte for byte (tolerance 0: integer
+hashing, counting and bit sets).  Each JAX run's packer calls are tallied,
+so a case that names the packed route is known to have taken it.  Streams
+stay under one JAX row bucket (16 kbp) a group, so the JAX programs compile
+once per k.  The `cuda` cases hold kernel 5's fill against its plain
+version on the same reads, on the card, and skip here."""
 
 import sys
 import threading
@@ -25,6 +26,7 @@ import goldpolish_tpu.native as jax_native
 from goldpolish_tpu.ops import bloom_sort as jbs
 from goldpolish_tpu_torch import native
 from goldpolish_tpu_torch.ops import bloom_sort as tbs
+from goldpolish_tpu_torch.ops.scan_conv import unpack2_reference
 
 H = 4
 CBF_BYTES = 1 << 20
@@ -32,7 +34,7 @@ BF_BYTES = 1 << 17
 KS = [32, 28]
 SINGLE = 1 << 40
 CHUNK = 4096
-CAP = tbs.EXC_CAP
+CAP = jbs._EXC_CAP
 IUPAC = np.frombuffer(b"RYSWKMBDHVN", np.uint8)
 ACGT = np.frombuffer(b"ACGTacgt", np.uint8)
 
@@ -74,20 +76,26 @@ def _reads(seed: int, n_exc: int, genome: int = 2700, frag: int = 600,
 
 def _jax(reads, thrs, chunk_bases, route, monkeypatch):
     """The JAX build by its packed route, or by its raw route (its packer
-    made to return None, as when a stream passes its cap)."""
+    made to return None, as when a stream passes its cap), and its groups
+    (packed, raw) as its packer decided them."""
+    routes = {"packed": 0, "raw": 0}
+    pack2 = jax_native.pack2
+
+    def tallied(*args, **kw):
+        res = pack2(*args, **kw) if route == "packed" else None
+        routes["raw" if res is None else "packed"] += 1
+        return res
+
     with monkeypatch.context() as m:
-        if route == "raw":
-            m.setattr(jax_native, "pack2", lambda *a, **kw: None)
-        return jbs.device_fill_bfs_sorted(reads, thrs, KS, H, CBF_BYTES, BF_BYTES,
-                                          chunk_bases=chunk_bases)
+        m.setattr(jax_native, "pack2", tallied)
+        got = jbs.device_fill_bfs_sorted(reads, thrs, KS, H, CBF_BYTES, BF_BYTES,
+                                         chunk_bases=chunk_bases)
+    return got, (routes["packed"], routes["raw"])
 
 
 def _port(reads, thrs, chunk_bases):
-    """The port's CPU fill and the routes its uploads took."""
-    before = {key: c.value for key, c in tbs.UPLOADS.items()}
-    got = tbs.device_fill_bfs_sorted(reads, thrs, KS, H, CBF_BYTES, BF_BYTES,
-                                     chunk_bases=chunk_bases, device="cpu")
-    return got, {key: c.value - before[key] for key, c in tbs.UPLOADS.items()}
+    return tbs.device_fill_bfs_sorted(reads, thrs, KS, H, CBF_BYTES, BF_BYTES,
+                                      chunk_bases=chunk_bases, device="cpu")
 
 
 def _assert_equal(got, want):
@@ -101,30 +109,26 @@ def _assert_equal(got, want):
 @pytest.mark.parametrize("n_exc", [0, 1, CAP, CAP + 1])
 def test_equals_jax_by_both_routes(n_exc, chunk_bases, jax_route, monkeypatch):
     """At 0, 1, 8192 and 8193 exceptions, single dispatch and chunked: the
-    port's fill equals the JAX build by either of its routes; a group of at
-    most 8192 exceptions went packed, one of more raw."""
+    port's fill equals the JAX build by either of its routes; the JAX
+    packed route sent a group of at most 8192 exceptions packed and one of
+    more raw."""
     reads, thrs = _reads(40 + n_exc % 7, n_exc, n_runs=min(n_exc // 50, 100))
-    want = _jax(reads, thrs, chunk_bases, jax_route, monkeypatch)
-    got, routes = _port(reads, thrs, chunk_bases)
+    want, routes = _jax(reads, thrs, chunk_bases, jax_route, monkeypatch)
+    got = _port(reads, thrs, chunk_bases)
     _assert_equal(got, want)
     assert any(g.pop_count for g in got)
-    groups = tbs._groups(reads, thrs, chunk_bases)
-    if chunk_bases == SINGLE:
-        assert (routes["packed"], routes["raw"]) == ((1, 0) if n_exc <= CAP else (0, 1))
-    else:
-        assert len(groups) > 1
-        assert routes["packed"] + routes["raw"] == len(groups)
-        assert routes["raw"] == sum(_n_exc(g) > CAP for g, _t in groups)
-    assert routes["pack2_s"] > 0
-    assert routes["h2d_bytes"] > 0
+    groups = [(reads, thrs)] if chunk_bases == SINGLE else \
+        tbs._groups(reads, thrs, chunk_bases)
+    assert len(groups) == 1 if chunk_bases == SINGLE else len(groups) > 1
+    packed = sum(_n_exc(g) <= CAP for g, _t in groups) if jax_route == "packed" else 0
+    assert routes == (packed, len(groups) - packed)
 
 
 @pytest.mark.parametrize("jax_route", ["packed", "raw"])
 def test_chunked_groups_split_across_the_cap(jax_route, monkeypatch):
-    """Three groups of 9,000 bases: 8192, 8193 and 100 exceptions.  The
-    second goes raw, the others packed, and the filters equal the JAX
-    build's and the port's single dispatch (which goes raw: 16,485
-    exceptions)."""
+    """Three groups of 9,000 bases: 8192, 8193 and 100 exceptions.  The JAX
+    packed route sends the second raw and the others packed; the port's
+    chunked fill and its single dispatch equal the JAX build either way."""
     rng = np.random.default_rng(7)
     truth = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, 4000)]
     reads, thrs = [], []
@@ -135,65 +139,18 @@ def test_chunked_groups_split_across_the_cap(jax_route, monkeypatch):
         reads += [stream[i : i + 1000].tobytes() for i in range(0, 9000, 1000)]
         thrs += [1 + g] * 9
     assert len(tbs._groups(reads, thrs, 9000)) == 3
-    want = _jax(reads, thrs, 9000, jax_route, monkeypatch)
-    got, routes = _port(reads, thrs, 9000)
-    _assert_equal(got, want)
-    assert (routes["packed"], routes["raw"]) == (2, 1)
-    single, routes = _port(reads, thrs, SINGLE)
-    _assert_equal(single, want)
-    assert (routes["packed"], routes["raw"]) == (0, 1)
-
-
-@pytest.mark.parametrize("error", [native.NativeUnavailable("no g++"), OSError("no .so")])
-def test_raw_without_the_native_library(error, monkeypatch):
-    """Where the port's native library is unavailable every group goes raw,
-    with the same filters."""
-    reads, thrs = _reads(5, 30, n_runs=1)
-    want, routes = _port(reads, thrs, SINGLE)
-    assert (routes["packed"], routes["raw"]) == (1, 0)
-
-    def unavailable():
-        raise error
-
-    monkeypatch.setattr(native, "lib", unavailable)
-    got, routes = _port(reads, thrs, SINGLE)
-    assert (routes["packed"], routes["raw"]) == (0, 1)
-    assert routes["pack2_s"] == 0
-    _assert_equal(got, want)
-
-
-def test_packer_failure_raises(monkeypatch):
-    """A packer failure other than an unavailable library is no reason to go
-    raw: it raises."""
-    reads, thrs = _reads(6, 3)
-
-    def broken(*args, **kw):
-        raise ValueError("pack2: broken")
-
-    monkeypatch.setattr(native, "pack2", broken)
-    with pytest.raises(ValueError, match="broken"):
-        tbs.device_fill_bfs_sorted(reads, thrs, KS, H, CBF_BYTES, BF_BYTES,
-                                   device="cpu")
-
-
-def test_decode_refuses_bad_input():
-    """The decode raises on a packed length that does not fit n, and on
-    mismatched exception arrays."""
-    with pytest.raises(ValueError, match="packed bytes"):
-        tbs.unpack2_stream(9, torch.zeros(2, dtype=torch.uint8),
-                           torch.zeros(0, dtype=torch.int64), torch.zeros(0, dtype=torch.uint8))
-    with pytest.raises(ValueError, match="exc_idx"):
-        tbs.unpack2_stream(8, torch.zeros(2, dtype=torch.uint8),
-                           torch.zeros(2, dtype=torch.int64), torch.zeros(1, dtype=torch.uint8))
+    want, routes = _jax(reads, thrs, 9000, jax_route, monkeypatch)
+    assert routes == ((2, 1) if jax_route == "packed" else (0, 3))
+    _assert_equal(_port(reads, thrs, 9000), want)
+    _assert_equal(_port(reads, thrs, SINGLE), want)
 
 
 def _fill_threads(device: str, n_threads: int = 6, rounds: int = 3):
     """n_threads threads, each filling `rounds` times on reads of its own,
     with a short switch interval: (each thread's filters of each round, the
-    plain fill of each thread's reads, the UPLOADS they moved)."""
+    plain fill of each thread's reads)."""
     inputs = [_reads(60 + t, 40 * t, n_runs=t) for t in range(n_threads)]
     out = [[None] * rounds for _ in range(n_threads)]
-    before = {key: c.value for key, c in tbs.UPLOADS.items()}
 
     def work(t):
         for r in range(rounds):
@@ -211,22 +168,18 @@ def _fill_threads(device: str, n_threads: int = 6, rounds: int = 3):
         assert not any(th.is_alive() for th in threads)
     finally:
         sys.setswitchinterval(interval)
-    moved = {key: c.value - before[key] for key, c in tbs.UPLOADS.items()}
     want = [tbs.device_fill_bfs_sorted_reference(*i, KS, H, CBF_BYTES, BF_BYTES,
                                                  chunk_bases=CHUNK) for i in inputs]
-    return out, want, moved, inputs
+    return out, want
 
 
 def test_fills_on_many_threads():
     """Fills on six threads at once (the overlap arm fills beside other
-    batches): every fill equals the plain fill of its reads, and the route
-    counts add up to every group of every fill, none lost."""
-    out, want, moved, inputs = _fill_threads("cpu")
+    batches): every fill equals the plain fill of its reads."""
+    out, want = _fill_threads("cpu")
     for fills, w in zip(out, want):
         for got in fills:
             _assert_equal(got, w)
-    groups = sum(len(tbs._groups(*i, CHUNK)) for i in inputs) * 3
-    assert (moved["packed"], moved["raw"]) == (groups, 0)
 
 
 def _decode_case(n: int, seed: int) -> bytes:
@@ -243,19 +196,20 @@ def _decode_case(n: int, seed: int) -> bytes:
 
 @pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8, 4093, 4094, 4095, 4096])
 def test_plain_decode_gives_back_the_stream(n):
-    """native.pack2, then the plain decode: the joined bytes exactly, with
-    lowercase acgt decoded as uppercase (as kernel 5 hashes them)."""
+    """A stream packed as the JAX packed route packs it (native.pack2), then
+    decoded (scan_conv's plain decode, one row): the raw upload's bytes up
+    to case (kernel 5 hashes acgt as ACGT), for n % 4 of 0-3, n < 4 and
+    exceptions at the first and the last position."""
     raw = _decode_case(n, n)
     packed, exc_idx, exc_byte = native.pack2(np.frombuffer(raw, np.uint8), CAP)
     assert exc_idx[0] == 0 and exc_idx[-1] == n - 1
-    codes = tbs.unpack2_stream(n, *(torch.from_numpy(a) for a in (packed, exc_idx,
-                                                                   exc_byte)))
+    codes = unpack2_reference(n, *(torch.from_numpy(a)[None] for a in (packed, exc_idx,
+                                                                        exc_byte)))[0]
     assert codes.dtype == torch.uint8 and codes.shape == (n,)
     want = bytes(c - 32 if c in b"acgt" else c for c in raw)
     assert codes.numpy().tobytes() == want
-    # the route as a whole: upload_group's codes on the CPU
-    codes, offsets, _thrs = tbs.upload_group([raw], [3], torch.device("cpu"))
-    assert codes.numpy().tobytes() == want
+    up, offsets, _thrs = tbs.upload_stream([raw], [3], torch.device("cpu"))
+    assert up.numpy().tobytes() == raw
     assert offsets.tolist() == [0, n]
 
 
@@ -265,52 +219,24 @@ def _cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 6, 7, 8, 4093, 4094, 4095, 4096, 1 << 21])
-def test_cuda_decode_matches_plain(n):
-    """Kernel 9 against its plain version on the card."""
-    _cuda()
-    raw = _decode_case(n, n)
-    parts = native.pack2(np.frombuffer(raw, np.uint8), CAP * 64)
-    before = tbs.unpack2_stream.launches.value
-    got = tbs.unpack2_stream(n, *(torch.from_numpy(a).cuda() for a in parts))
-    torch.cuda.synchronize()
-    assert tbs.unpack2_stream.launches.value == before + 1
-    want = tbs.unpack2_stream_reference(n, *(torch.from_numpy(a) for a in parts))
-    assert torch.equal(got.cpu(), want)
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("chunk_bases", [SINGLE, CHUNK])
 @pytest.mark.parametrize("n_exc", [0, 1, CAP, CAP + 1])
-def test_cuda_packed_route_equals_raw_route(n_exc, chunk_bases, monkeypatch):
-    """The CUDA fill by its packed route (kernel 9 launched) equals its raw
-    route (native.pack2 unset) and the plain fill."""
+def test_cuda_fill_equals_plain(n_exc, chunk_bases):
+    """Kernel 5's fill on the card equals its plain fill on these
+    exception-laden reads."""
     _cuda()
     reads, thrs = _reads(40 + n_exc % 7, n_exc, n_runs=min(n_exc // 50, 100))
     args = (reads, thrs, KS, H, CBF_BYTES, BF_BYTES)
-    before = tbs.unpack2_stream.launches.value
-    packed = tbs.device_fill_bfs_sorted(*args, chunk_bases=chunk_bases, device="cuda")
-    if n_exc <= CAP:
-        assert tbs.unpack2_stream.launches.value > before
-    want = tbs.device_fill_bfs_sorted_reference(*args, chunk_bases=chunk_bases)
-    with monkeypatch.context() as m:
-        m.setattr(native, "pack2", None)
-        before = tbs.unpack2_stream.launches.value
-        raw = tbs.device_fill_bfs_sorted(*args, chunk_bases=chunk_bases, device="cuda")
-        assert tbs.unpack2_stream.launches.value == before
-    _assert_equal(packed, raw)
-    _assert_equal(packed, want)
+    got = tbs.device_fill_bfs_sorted(*args, chunk_bases=chunk_bases, device="cuda")
+    _assert_equal(got, tbs.device_fill_bfs_sorted_reference(*args, chunk_bases=chunk_bases))
 
 
 @pytest.mark.cuda
 def test_cuda_fills_on_many_threads():
-    """Six threads filling on the card at once share the pinned packing
-    buffers: each set is written again only after the copies that read it,
-    so every fill equals the plain fill of its reads."""
+    """Six threads filling on the card at once, each on its own side
+    stream: every fill equals the plain fill of its reads."""
     _cuda()
-    out, want, moved, inputs = _fill_threads("cuda")
+    out, want = _fill_threads("cuda")
     for fills, w in zip(out, want):
         for got in fills:
             _assert_equal(got, w)
-    groups = sum(len(tbs._groups(*i, CHUNK)) for i in inputs) * 3
-    assert (moved["packed"], moved["raw"]) == (groups, 0)
