@@ -169,8 +169,11 @@ raises and the script exits non-zero without the result line.
             JAX_* variables), the default arm and the jax arm, -b 1: each
             merged output equal to the one-process arm's bytes, each rank
             polishing batches [r, r + 2] and launching kernel 4 (default)
-            or kernels 6 and 7 (jax); prints each rank's wall and
-            launches (from its log).
+            or kernels 6 and 7 (jax); then --target on two ranks, the
+            hybrid arm with the device scan forced, its merged output
+            equal to the `targeted` phase's one-process hybrid bytes, rank
+            r polishing gaps r, r + 2, ... and launching kernel 4; prints
+            each rank's wall and launches (from its log).
             Before the arms, the fill phase: for each of the 4 batches
             (bulk's builder and read choice: ~1,900 reads, ~11.6 Mbases,
             a 10 MiB counting filter and a 4 MiB filter per k), the device
@@ -1956,7 +1959,7 @@ def phase_targeted(inp: dict) -> dict:
         raise AssertionError(f"targeted: {line}")
     require_launches(arms["hybrid"], "scan_eval")
     require_launches(arms["jax"], "scan_kernel", "site_eval")
-    return line
+    return line, arms["hybrid"]
 
 
 def phase_tools(inp: dict) -> dict:
@@ -2412,17 +2415,21 @@ def rank_report(stderr: str) -> dict:
             "kernel_launches": json.loads(launches.group(1)) if launches else None}
 
 
-def phase_multihost(inp: dict, arms: dict) -> dict:
+def phase_multihost(inp: dict, arms: dict, n_gaps: int) -> dict:
     """K9 across processes: the CLI as two ranks on the one card, joined
     over gloo at 127.0.0.1 (the JAX package's three variables), on the
     main input with -b 1 (4 batches, 2 a rank), in the default arm and the
-    jax arm; each merged output equal, byte for byte, to the main phase's
-    one-process output of that arm, and each rank launching the arm's
-    kernels (kernel 4; kernels 6 and 7)."""
+    jax arm, and --target on the hybrid arm (the device scan forced; its
+    n_gaps gaps one a batch, every other one a rank; host 0 extracts,
+    merges and splices); each merged output equal, byte for byte, to the
+    one-process output of that arm (the main phase's, the targeted
+    phase's), and each rank launching the arm's kernels (kernel 4; kernels
+    6 and 7; kernel 4)."""
     line = {}
     for name, env, extra, need in (
             ("default", {**FORCE, "GPTPU_DEVICE_EVAL": None}, (), ("scan_eval",)),
-            ("jax", {}, ("--backend", "jax"), ("site_eval", "dbg_extend"))):
+            ("jax", {}, ("--backend", "jax"), ("site_eval", "dbg_extend")),
+            ("target", FORCE, ("--target",), ("scan_eval",))):
         argv = cli_argv(inp, f"multihost_{name}", *extra)
         t = time.monotonic()
         ranks = run_ranks(argv, env)
@@ -2440,9 +2447,10 @@ def phase_multihost(inp: dict, arms: dict) -> dict:
         if not line[name]["equals_one_process"]:
             raise AssertionError(f"multihost {name}: the merged output differs from "
                                  "the one-process run")
+        n_batches = n_gaps if name == "target" else N_CONTIGS
         for rank, rep in enumerate(reports):
             counts = rep["kernel_launches"] or {}
-            if rep["batches"] != [rank, rank + 2] or min(
+            if rep["batches"] != list(range(rank, n_batches, 2)) or min(
                     counts.get(key, 0) for key in need) <= 0:
                 raise AssertionError(f"multihost {name}: rank {rank}: {rep}")
     return line
@@ -2548,10 +2556,12 @@ def phase_main(rng):
         # the paths of the CLI and the stage tools beside bulk's main path,
         # each with its counts set to 0 just before its arms and read after
         paths = {"main_k72": phase_main_k72(inp),
-                 "main_internal_map": phase_internal_map(inp),
-                 "targeted": phase_targeted(inp), "tools": phase_tools(inp),
-                 "sharded": phase_sharded(inp),
-                 "multihost": phase_multihost(inp, {"default": on, "jax": jax})}
+                 "main_internal_map": phase_internal_map(inp)}
+        paths["targeted"], targeted = phase_targeted(inp)
+        paths.update(tools=phase_tools(inp), sharded=phase_sharded(inp),
+                     multihost=phase_multihost(
+                         inp, {"default": on, "jax": jax, "target": targeted},
+                         paths["targeted"]["gaps"]))
         return launches, truths, fills, ext_main, paths
     finally:
         shutil.rmtree(work, ignore_errors=True)

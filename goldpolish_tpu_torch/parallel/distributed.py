@@ -38,6 +38,10 @@ log = get_logger("distributed")
 
 # a host that never joins fails the others' rendezvous after this long
 RENDEZVOUS_TIMEOUT_S = 600
+# a host waiting at barrier() for a slower one (host 0 mapping a whole
+# assembly, the reaper merging every batch) fails after this long, as the
+# reaper does
+BARRIER_TIMEOUT_S = 7200
 
 
 def init_distributed(coordinator: str | None = None, num_processes: int | None = None,
@@ -50,13 +54,16 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
     JAX_PROCESS_ID.  Unconfigured, a single-host run: (0, 1), no group.
     The group is gloo over TCP with a finite timeout, so a missing host
     fails the rendezvous instead of hanging it; shutdown_distributed()
-    leaves it.
+    leaves it.  Inside a group joined already (targeted mode joins before
+    its extraction and runs bulk within it), returns its rank and size.
     """
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if not coordinator:
         return 0, 1
     import torch.distributed as tdist
 
+    if in_group():
+        return tdist.get_rank(), tdist.get_world_size()
     num_processes = configured_hosts(coordinator, num_processes)
     if process_id is None:
         process_id = int(os.environ.get("JAX_PROCESS_ID", "0"))
@@ -82,11 +89,38 @@ def configured_hosts(coordinator: str | None = None,
     return num_processes
 
 
+def in_group() -> bool:
+    """Whether this process has joined a process group."""
+    import torch.distributed as tdist
+
+    return tdist.is_available() and tdist.is_initialized()
+
+
+def barrier(timeout_s: float = BARRIER_TIMEOUT_S) -> None:
+    """Wait until every host of the group reaches this point; a host that
+    has not after timeout_s fails it (gloo's monitored barrier, which names
+    the missing ranks)."""
+    import torch.distributed as tdist
+
+    tdist.monitored_barrier(timeout=datetime.timedelta(seconds=timeout_s),
+                            wait_all_ranks=True)
+
+
+def from_host_0(obj):
+    """Host 0's `obj` on every host of the group (any picklable value; the
+    other hosts' arguments are ignored)."""
+    import torch.distributed as tdist
+
+    box = [obj]
+    tdist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def shutdown_distributed() -> None:
     """Leave the process group init_distributed joined (if any)."""
     import torch.distributed as tdist
 
-    if tdist.is_available() and tdist.is_initialized():
+    if in_group():
         tdist.destroy_process_group()
 
 

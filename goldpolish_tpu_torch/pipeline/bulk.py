@@ -152,12 +152,7 @@ def resolve_mappings(cfg: PipelineConfig, target_index,
             f".k{cfg.k_ntlink}.w{cfg.w_ntlink}.z1000.mapping.tsv"
         )
         if not fresh(path):
-            subprocess.run(
-                ["ntLink", f"t={cfg.threads}", f"target={cfg.seqs_to_polish}",
-                 f"reads={cfg.polishing_seqs}", "pair", "verbose=True",
-                 f"k={cfg.k_ntlink}", f"w={cfg.w_ntlink}", "sensitive=True"],
-                check=True,
-            )
+            _ntlink_pair(cfg, path)
     elif not path:
         from .. import mapper as internal_mapper
 
@@ -179,6 +174,31 @@ def resolve_mappings(cfg: PipelineConfig, target_index,
         path, target_index,
         mx_max_mapped_seqs_per_target_10kbp=cfg.mx_max_reads_per_10kbp,
     )
+
+
+def _ntlink_pair(cfg: PipelineConfig, path: str) -> None:
+    """`ntLink pair` run in a directory of this host and process beside
+    the CWD, its outputs then renamed into the CWD, the mapping TSV `path`
+    last: ntLink writes its files in place, and the hosts of a multi-host
+    run map the same input into the same CWD at once, so none may read (or
+    take as fresh) a half-written mapping."""
+    import shutil
+    import subprocess
+
+    run_dir = f"{path}.{socket.gethostname()}.{os.getpid()}.d"
+    os.makedirs(run_dir)
+    try:
+        subprocess.run(
+            ["ntLink", f"t={cfg.threads}",
+             f"target={os.path.abspath(cfg.seqs_to_polish)}",
+             f"reads={os.path.abspath(cfg.polishing_seqs)}", "pair", "verbose=True",
+             f"k={cfg.k_ntlink}", f"w={cfg.w_ntlink}", "sensitive=True"],
+            check=True, cwd=run_dir,
+        )
+        for name in sorted(os.listdir(run_dir), key=lambda n: n == path):
+            os.replace(os.path.join(run_dir, name), name)
+    finally:
+        shutil.rmtree(run_dir, ignore_errors=True)
 
 
 @dataclass
@@ -319,13 +339,6 @@ def check_ported(cfg: PipelineConfig) -> None:
             "--process-pool requires --backend numpy (forked workers cannot "
             "share a CUDA context)"
         )
-    if cfg.target and dist.configured_hosts() > 1:
-        # every host would extract, polish into and delete the same gap
-        # files next to the output, and write the output itself
-        raise ValueError(
-            "--target runs on one host; start it without a multi-host "
-            "coordinator (JAX_COORDINATOR_ADDRESS)"
-        )
     if cfg.backend != "numpy" and cfg.device.startswith("cuda"):
         import torch
 
@@ -359,7 +372,7 @@ def run_bulk(cfg: PipelineConfig) -> dict:
             "the larger k"
         )
     t_start = _time.monotonic()
-    n_hosts = 1
+    own_group = False
     ws = engine.Workspace(
         prefix=f"goldpolish-tpu-{os.getpid()}",
         base=cfg.workspace or None,
@@ -385,7 +398,9 @@ def run_bulk(cfg: PipelineConfig) -> dict:
         timing_sum: dict = {}
 
         # the batch files of parallel.distributed carry the multi-host merge
-        # and, on one host, the checkpoint replay
+        # and, on one host, the checkpoint replay; a group joined already
+        # (targeted mode's) is used, and left to the caller that joined it
+        own_group = not dist.in_group()
         host_id, n_hosts = dist.init_distributed()
         my_batches = [
             b for b in all_batches
@@ -751,6 +766,6 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                  json.dumps(totals["kernel_launches"]))
         return totals
     finally:
-        if n_hosts > 1:
+        if own_group:
             dist.shutdown_distributed()
         ws.cleanup()

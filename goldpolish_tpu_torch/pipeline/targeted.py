@@ -24,7 +24,11 @@ run_goldpolish -> run_post_processing):
 Port counterpart: goldpolish_tpu/pipeline/targeted.py, copied (host code;
 step 3 runs the port's bulk pipeline, so the gaps polish on the config's
 backend and device), with the port's startup check (bulk.check_ported)
-run before step 1: a configuration the port refuses writes nothing.
+run before step 1: a configuration the port refuses writes nothing.  On
+many hosts, host 0 alone runs steps 1, 2 and 4 and deletes the
+intermediates, and every host polishes its share of step 3 (run_targeted);
+in the JAX package every host extracts, polishes into and deletes the same
+files, and writes the output.
 """
 
 from __future__ import annotations
@@ -246,9 +250,17 @@ def run_targeted(cfg: PipelineConfig) -> dict:
     Stage wall times are logged with cfg.benchmark (the reference wraps
     each snakemake rule in memusg/time -v, smk:29-37); intermediates are
     deleted unless cfg.target_dev (reference goldpolish-target.py cleanup
-    of INTERMEDIATE_* files, kept with --target_dev)."""
+    of INTERMEDIATE_* files, kept with --target_dev).
+
+    On many hosts (parallel/distributed.py) the run joins the group once,
+    before extraction, and bulk polishes inside it: host 0 alone extracts,
+    maps and remaps while the others wait; every host polishes its own
+    batches of the gaps, which host 0's reaper merges; a barrier then holds
+    host 0 until no host reads the gap files, and host 0 alone splices,
+    writes the output and deletes the intermediates."""
     import time as _time
 
+    from ..parallel import distributed as dist
     from . import bulk
 
     bulk.check_ported(cfg)
@@ -270,15 +282,19 @@ def run_targeted(cfg: PipelineConfig) -> dict:
     gaps_fa = f"{prefix}.gaps.fa"
     remapped_paf = f"{prefix}.gaps.paf"
     polished_gaps = f"{prefix}.gaps.goldpolished.fa"
+    own_group = not dist.in_group()
+    host_id, n_hosts = dist.init_distributed()
     try:
         return _run_targeted_inner(
-            cfg, gaps_fa, remapped_paf, polished_gaps, mark, marks, t_start
+            cfg, gaps_fa, remapped_paf, polished_gaps, mark, marks, t_start,
+            host_id, n_hosts,
         )
     finally:
         # intermediates go unless --target_dev (reference
         # goldpolish-target.py INTERMEDIATE_* cleanup), on every exit path
-        # including the zero-gap early return and errors
-        if not cfg.target_dev:
+        # including the zero-gap early return and errors; host 0 wrote
+        # them, and host 0 deletes them
+        if host_id == 0 and not cfg.target_dev:
             for p in (
                 gaps_fa, remapped_paf, polished_gaps,
                 # derived caches of the intermediates (next-to-input
@@ -291,25 +307,20 @@ def run_targeted(cfg: PipelineConfig) -> dict:
                     os.remove(p)
                 except OSError:
                     pass
+        if own_group:
+            dist.shutdown_distributed()
 
 
-def _run_targeted_inner(cfg: PipelineConfig, gaps_fa: str, remapped_paf: str,
-                        polished_gaps: str, mark, marks, t_start) -> dict:
-    import time as _time
-
-    from . import bulk
-
+def _prepare(cfg: PipelineConfig, gaps_fa: str, remapped_paf: str, mark) -> int:
+    """Steps 1 and 2: extract the gaps, map (or take --mappings) and remap
+    the PAF into gap coordinates; returns the number of gaps (0 writes
+    nothing but the empty gap file)."""
     mark("extract_seq")
     n_gaps = extract_gaps(
         cfg.seqs_to_polish, gaps_fa, cfg.flank_length, cfg.bed
     )
     if n_gaps == 0:
-        log.info("no target regions found; copying input through")
-        fasta.write_fasta(
-            cfg.output_seqs,
-            ((r.id, r.seq) for r in fasta.read_seqs(cfg.seqs_to_polish)),
-        )
-        return {"gaps": 0}
+        return 0
 
     # mappings for the whole assembly (provided or external mapper)
     mark("map")
@@ -325,6 +336,42 @@ def _run_targeted_inner(cfg: PipelineConfig, gaps_fa: str, remapped_paf: str,
     mark("update_mapping_paf")
     trees = build_gap_index(gaps_fa)
     update_paf(mapping, trees, remapped_paf)
+    return n_gaps
+
+
+def _run_targeted_inner(cfg: PipelineConfig, gaps_fa: str, remapped_paf: str,
+                        polished_gaps: str, mark, marks, t_start,
+                        host_id: int = 0, n_hosts: int = 1) -> dict:
+    import time as _time
+
+    from ..parallel import distributed as dist
+    from . import bulk
+
+    if n_hosts == 1:
+        n_gaps = _prepare(cfg, gaps_fa, remapped_paf, mark)
+    else:
+        # host 0 alone writes the gap file and the remapped PAF; a failure
+        # there reaches every host, none waits out the barrier for it
+        n_gaps, failure = None, None
+        if host_id == 0:
+            try:
+                n_gaps = _prepare(cfg, gaps_fa, remapped_paf, mark)
+            except Exception as e:  # noqa: BLE001 — raised after the barrier
+                failure = e
+        dist.barrier()
+        n_gaps = dist.from_host_0(n_gaps)
+        if failure is not None:
+            raise failure
+        if n_gaps is None:
+            raise RuntimeError("host 0 failed to extract or map the targets")
+    if n_gaps == 0:
+        if host_id == 0:
+            log.info("no target regions found; copying input through")
+            fasta.write_fasta(
+                cfg.output_seqs,
+                ((r.id, r.seq) for r in fasta.read_seqs(cfg.seqs_to_polish)),
+            )
+        return {"gaps": 0}
 
     # recurse into the bulk pipeline on the extracted gaps
     # (reference smk:97-103: -s 100 -x 150)
@@ -339,6 +386,13 @@ def _run_targeted_inner(cfg: PipelineConfig, gaps_fa: str, remapped_paf: str,
     )
     mark("run_goldpolish")
     bulk.run_bulk(sub_cfg)
+    if n_hosts > 1:
+        # host 0's run_bulk returns once its reaper has merged every batch;
+        # another host returns once its own are published, or at once when
+        # it has none, and may still be reading the gap files then
+        dist.barrier()
+        if host_id != 0:
+            return {"gaps": n_gaps}
 
     mark("post_processing")
     insert_polished_gaps(cfg.seqs_to_polish, polished_gaps, cfg.output_seqs)

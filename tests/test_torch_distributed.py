@@ -98,7 +98,8 @@ def test_init_distributed_joins_and_leaves_a_group(monkeypatch):
 
 def test_configured_hosts_and_target_refusal(monkeypatch):
     """configured_hosts reads the hosts before any rendezvous; check_ported
-    keeps --target on one host."""
+    accepts --target on one host and on many (targeted mode runs there:
+    tests/test_torch_multihost.py)."""
     from goldpolish_tpu_torch.config import PipelineConfig
     from goldpolish_tpu_torch.pipeline import bulk
 
@@ -110,10 +111,36 @@ def test_configured_hosts_and_target_refusal(monkeypatch):
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "127.0.0.1:1")
     assert dist.configured_hosts() == 4
     assert dist.configured_hosts(num_processes=1) == 1
-    with pytest.raises(ValueError, match="--target runs on one host"):
-        bulk.check_ported(cfg)
-    monkeypatch.setenv("JAX_NUM_PROCESSES", "1")
     bulk.check_ported(cfg)
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
+    assert dist.configured_hosts() == 2
+    bulk.check_ported(cfg)
+
+
+def test_group_joined_once_is_reused(monkeypatch):
+    """Inside a group joined already, init_distributed returns its rank and
+    size without a second rendezvous (targeted mode joins once and runs bulk
+    inside; bulk leaves a group it did not join); barrier and from_host_0
+    pass through a group of one."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", f"127.0.0.1:{port}")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "1")
+    monkeypatch.setenv("JAX_PROCESS_ID", "0")
+    assert not dist.in_group()
+    try:
+        assert dist.init_distributed() == (0, 1)
+        assert dist.in_group()
+        # a second init_process_group would raise
+        assert dist.init_distributed() == (0, 1)
+        dist.barrier(timeout_s=30)
+        assert dist.from_host_0({"gaps": 3}) == {"gaps": 3}
+    finally:
+        dist.shutdown_distributed()
+    assert not dist.in_group()
 
 
 # tests/test_distributed.py:53

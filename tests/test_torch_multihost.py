@@ -11,9 +11,12 @@ their one-process run only), and numpy with the sealer on, whose
 "<id> " headers the merge must keep.  The JAX package's own two-process
 hybrid run fails there (its scanner's mesh spans both processes' devices,
 goldpolish_tpu/ops/scan_conv.py:298-317); the port's scanner shards over
-its own process's devices only.  Then two failures with --checkpoint: rank
-1 killed mid-run, and a published batch file lost before the reaper read
-it; both ranks rerun and resume to the same bytes."""
+its own process's devices only.  --target on two ranks (numpy and hybrid)
+against one process and the JAX package's one-process run, and ntLink
+mapping into one shared CWD (a stub that writes slowly).  Then two
+failures with --checkpoint: rank 1 killed mid-run, and a published batch
+file lost before the reaper read it; both ranks rerun and resume to the
+same bytes."""
 
 import os
 import signal
@@ -26,6 +29,7 @@ import pytest
 
 from goldpolish_tpu.config import PipelineConfig
 from goldpolish_tpu.pipeline import bulk as jbulk
+from goldpolish_tpu.pipeline import targeted as jtargeted
 from test_multihost import _scenario
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -83,6 +87,16 @@ elif patch == "hold_batch0":
         write(out, index, records)
 
     dist.write_batch_output = held
+elif patch == "map_after":
+    # the rank maps only once the file `arg` exists
+    resolve = bulk.resolve_mappings
+
+    def resolve_after(*a, **kw):
+        while not os.path.exists(arg):
+            time.sleep(0.05)
+        return resolve(*a, **kw)
+
+    bulk.resolve_mappings = resolve_after
 elif patch == "empty_batch1":
     # rank 1 publishes batch 1 as an empty file
     write = dist.write_batch_output
@@ -107,10 +121,10 @@ def _argv(files, out, ws, backend, *extra):
             "--device", "cpu", "--backend", backend, "-m", ws, *extra]
 
 
-def _start(argv, env, patch=None):
+def _start(argv, env, patch=None, cwd=REPO):
     cmd = ([sys.executable, "-c", _PATCH_SCRIPT.format(repo=REPO), *argv] if patch
            else [sys.executable, "-m", "goldpolish_tpu_torch.cli", *argv])
-    return subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+    return subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
 
@@ -228,22 +242,134 @@ def test_cuda_without_cuda_raises_in_every_rank(reference):
     assert not os.path.exists(tmp / "cuda.fa")
 
 
-def test_target_refused_on_many_hosts(reference):
-    """--target keeps one host: its gap files sit next to the output, where
-    every host would write, read and delete them.  Each rank refuses at
-    startup, before the rendezvous, and leaves no file behind."""
+@pytest.fixture(scope="module")
+def target_reference(reference):
+    """--target on the scenario with each contig's middle third soft-masked
+    (its error inside): four gaps, one a batch.  The JAX package's
+    one-process bytes (numpy backend) and the port's one-process bytes per
+    arm, each run in a directory of its own (the gap files sit next to the
+    output)."""
     tmp = reference[0]
+    draft, reads, paf = _files(tmp)
+    masked = str(tmp / "draft_sm.fa")
+    with open(draft) as f, open(masked, "w") as w:
+        for line in f:
+            w.write(line if line.startswith(">")
+                    else line[:1000] + line[1000:2000].lower() + line[2000:])
+    files = (masked, reads, paf)
+    procs = {}
+    for arm in TARGET_ARMS:
+        backend, env, extra, _patch = ARMS[arm]
+        (tmp / f"target_single_{arm}").mkdir()
+        argv = _argv(files, str(tmp / f"target_single_{arm}" / "out.fa"),
+                     str(tmp / f"ws_target_single_{arm}"), backend, "--target", *extra)
+        procs[arm] = _start(argv, _env(env))
+    (tmp / "target_jax").mkdir()
+    jax_out = str(tmp / "target_jax" / "out.fa")
+    jtargeted.run_targeted(PipelineConfig(
+        seqs_to_polish=masked, polishing_seqs=reads, output_seqs=jax_out,
+        mappings_path=paf, k_values=[32], batch_size=1, run_sealer=False,
+        target=True, flank_length=64, workspace=str(tmp / "ws_target_jax")))
+    ports = {}
+    for arm, p in procs.items():
+        rc, err = _finish(p)
+        assert rc == 0, err[-2000:]
+        ports[arm] = _read(str(tmp / f"target_single_{arm}" / "out.fa"))
+    return files, _read(jax_out), ports
+
+
+TARGET_ARMS = ("numpy", "hybrid")
+
+
+def _two_rank_target(reference, target_reference, arm):
+    """Two ranks' --target run of `arm`: the merged output equals one
+    process's and the JAX package's; host 0 alone wrote it and deleted the
+    gap files, and no rank left a file behind."""
+    tmp = reference[0]
+    files, jax_bytes, ports = target_reference
+    backend, env, extra, _patch = ARMS[arm]
+    out_dir = tmp / f"target_multi_{arm}"
+    out_dir.mkdir()
     port = _free_port()
-    procs = []
-    for rank in range(2):
-        argv = _argv(_files(tmp), str(tmp / "target.fa"), str(tmp / f"ws_target{rank}"),
-                     "numpy", "--target", *NO_SEALER)
-        procs.append(_start(argv, _env(None, rank, port)))
-    for rc, err in (_finish(p, timeout=60) for p in procs):
-        assert rc not in (0, "timeout") and "--target runs on one host" in err, err[-2000:]
-        assert "joined" not in err
-    assert not [f for f in os.listdir(tmp)
-                if f.startswith("target.fa") or f.startswith("GoldPolish-Target_work")]
+    procs = [_start(_argv(files, str(out_dir / "out.fa"),
+                          str(tmp / f"ws_target_multi_{arm}{rank}"), backend,
+                          "--target", *extra),
+                    _env(env, rank, port))
+             for rank in range(2)]
+    results = [_finish(p) for p in procs]
+    assert [rc for rc, _e in results] == [0, 0], [e[-2000:] for _rc, e in results]
+    assert ports[arm] == jax_bytes
+    assert _read(str(out_dir / "out.fa")) == ports[arm]
+    assert ports[arm] != _read(files[0])  # the gaps were polished
+    for rank, (_rc, err) in enumerate(results):
+        assert f"host {rank} of 2 joined" in err
+        assert f"polishes batches [{rank}, {rank + 2}]" in err
+        assert ("targeted polishing done" in err) == (rank == 0)
+    assert os.listdir(out_dir) == ["out.fa"]
+
+
+def test_target_refused_on_many_hosts(reference, target_reference):
+    """--target is no longer refused on many hosts: two ranks (numpy
+    backend) give one process's output and the JAX package's."""
+    _two_rank_target(reference, target_reference, "numpy")
+
+
+def test_target_on_many_hosts_hybrid(reference, target_reference):
+    """Two ranks' --target run on the hybrid backend (the device scan
+    pinned, the plain torch versions on the CPU): one process's bytes and
+    the JAX package's."""
+    _two_rank_target(reference, target_reference, "hybrid")
+
+
+def test_ntlink_on_many_hosts_in_one_cwd(reference, tmp_path):
+    """Two ranks map with ntLink in one shared CWD.  The stub writes its
+    mapping TSV in two halves two seconds apart, as a real run writes in
+    place, and marks the first half written; rank 1 starts mapping only
+    then, while rank 0's stub sleeps.  Each rank runs ntLink in a directory
+    of its own and publishes the TSV by rename, so rank 1 neither reads nor
+    takes as fresh rank 0's half file, and the merged output equals one
+    process's with the same stub."""
+    from goldpolish_tpu_torch import mapper as internal_mapper
+
+    draft, reads, _paf = _files(reference[0])
+    tsv = str(tmp_path / "precomputed.mapping.tsv")
+    internal_mapper.write_mapping_tsv(draft, reads, tsv)
+    with open(tsv, "rb") as f:
+        data = f.read()
+    half, rest, marker = (str(tmp_path / n) for n in ("half", "rest", "half_written"))
+    with open(half, "wb") as a, open(rest, "wb") as b:
+        a.write(data[: len(data) // 2])
+        b.write(data[len(data) // 2:])
+    artifact = f"{os.path.basename(draft)}.k88.w1000.z1000.mapping.tsv"
+    bin_dir = tmp_path / "stub_bin"
+    bin_dir.mkdir()
+    stub = bin_dir / "ntLink"
+    stub.write_text(f"#!/bin/sh\ncat {half} > {artifact}\ntouch {marker}\nsleep 2\n"
+                    f"cat {rest} >> {artifact}\n")
+    stub.chmod(0o755)
+    path = {"PATH": f"{bin_dir}:{os.environ['PATH']}"}
+
+    def argv(cwd, ws):
+        return [draft, reads, str(cwd / "out.fa"), "-k", "32", "-b", "1",
+                "--device", "cpu", "--backend", "numpy", "-m", str(tmp_path / ws),
+                *NO_SEALER]
+
+    single, shared = tmp_path / "single_cwd", tmp_path / "shared_cwd"
+    single.mkdir()
+    shared.mkdir()
+    rc, err = _finish(_start(argv(single, "ws_single"), _env(path), cwd=single))
+    assert rc == 0, err[-2000:]
+    os.remove(marker)
+    port = _free_port()
+    patches = (None, {"PATCH": "map_after", "PATCH_ARG": marker})
+    procs = [_start(argv(shared, f"ws_{rank}"), _env(path, rank, port, **(patches[rank] or {})),
+                    patches[rank], cwd=shared)
+             for rank in range(2)]
+    results = [_finish(p) for p in procs]
+    assert [rc for rc, _e in results] == [0, 0], [e[-2000:] for _rc, e in results]
+    assert _read(str(shared / "out.fa")) == _read(str(single / "out.fa"))
+    assert _read(str(shared / artifact)) == data
+    assert sorted(os.listdir(shared)) == sorted([artifact, "out.fa"])
 
 
 def test_reaper_failure_fails_host_0(reference):
