@@ -37,7 +37,10 @@ class SeqIndex:
             try:
                 from .. import native
 
-                tmp = seqs_filepath + ".gptpu_index_tmp"
+                # a temporary of this host and process: the hosts of a
+                # multi-host run index the same input at once
+                tmp = (f"{seqs_filepath}.{socket.gethostname()}.{os.getpid()}"
+                       ".gptpu_index_tmp")
                 native.seqindex_build(seqs_filepath, tmp)
                 idx._load_tsv(tmp)
                 os.remove(tmp)

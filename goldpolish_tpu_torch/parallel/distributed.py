@@ -38,9 +38,9 @@ log = get_logger("distributed")
 
 # a host that never joins fails the others' rendezvous after this long
 RENDEZVOUS_TIMEOUT_S = 600
-# a host waiting at barrier() for a slower one (host 0 mapping a whole
-# assembly, the reaper merging every batch) fails after this long, as the
-# reaper does
+# the group's collective timeout: a host waiting in a collective for a
+# slower one (host 0 mapping a whole assembly, the reaper merging every
+# batch) fails after this long, as the reaper does
 BARRIER_TIMEOUT_S = 7200
 
 
@@ -52,10 +52,13 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
     Configured by the arguments or by JAX_COORDINATOR_ADDRESS (host:port
     of host 0, where the rendezvous listens), JAX_NUM_PROCESSES and
     JAX_PROCESS_ID.  Unconfigured, a single-host run: (0, 1), no group.
-    The group is gloo over TCP with a finite timeout, so a missing host
-    fails the rendezvous instead of hanging it; shutdown_distributed()
-    leaves it.  Inside a group joined already (targeted mode joins before
-    its extraction and runs bulk within it), returns its rank and size.
+    The group is gloo over TCP.  Its store, which every host joins first,
+    waits RENDEZVOUS_TIMEOUT_S, so a missing host fails the rendezvous
+    instead of hanging it; its collectives wait BARRIER_TIMEOUT_S on every
+    host (gloo applies the group's timeout to every wait but rank 0's in a
+    monitored barrier).  shutdown_distributed() leaves it.  Inside a group
+    joined already (targeted mode joins before its extraction and runs bulk
+    within it), returns its rank and size.
     """
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if not coordinator:
@@ -69,9 +72,14 @@ def init_distributed(coordinator: str | None = None, num_processes: int | None =
         process_id = int(os.environ.get("JAX_PROCESS_ID", "0"))
     if not 0 <= process_id < num_processes:
         raise ValueError(f"process id {process_id} outside {num_processes} processes")
+    host, port = coordinator.rsplit(":", 1)
+    store = tdist.TCPStore(
+        host.strip("[]"), int(port), num_processes, is_master=process_id == 0,
+        timeout=datetime.timedelta(seconds=RENDEZVOUS_TIMEOUT_S),
+    )
     tdist.init_process_group(
-        "gloo", init_method=f"tcp://{coordinator}", world_size=num_processes,
-        rank=process_id, timeout=datetime.timedelta(seconds=RENDEZVOUS_TIMEOUT_S),
+        "gloo", store=store, world_size=num_processes, rank=process_id,
+        timeout=datetime.timedelta(seconds=BARRIER_TIMEOUT_S),
     )
     log.info("host %d of %d joined at %s", process_id, num_processes, coordinator)
     return tdist.get_rank(), tdist.get_world_size()
@@ -96,10 +104,17 @@ def in_group() -> bool:
     return tdist.is_available() and tdist.is_initialized()
 
 
+def group_rank() -> tuple[int, int]:
+    """(host_id, n_hosts) in the group joined; (0, 1) outside one."""
+    import torch.distributed as tdist
+
+    return (tdist.get_rank(), tdist.get_world_size()) if in_group() else (0, 1)
+
+
 def barrier(timeout_s: float = BARRIER_TIMEOUT_S) -> None:
     """Wait until every host of the group reaches this point; a host that
     has not after timeout_s fails it (gloo's monitored barrier, which names
-    the missing ranks)."""
+    the missing ranks on host 0; the others wait the group's timeout)."""
     import torch.distributed as tdist
 
     tdist.monitored_barrier(timeout=datetime.timedelta(seconds=timeout_s),
@@ -114,6 +129,28 @@ def from_host_0(obj):
     box = [obj]
     tdist.broadcast_object_list(box, src=0)
     return box[0]
+
+
+def on_host_0(fn):
+    """fn() run by host 0 alone while the other hosts of the group wait
+    for it (in from_host_0, up to the group's timeout); returns host 0's
+    result on every host.  When fn raises, host 0 raises it and the others
+    a RuntimeError that names it, so no host waits on one that failed."""
+    host_id, n_hosts = group_rank()
+    result, failure = None, None
+    if host_id == 0:
+        try:
+            result = fn()
+        except Exception as e:  # noqa: BLE001 — raised once the others know
+            failure = e
+    if n_hosts > 1:
+        result, failed = from_host_0(
+            (result, None if failure is None else repr(failure)))
+        if failed and failure is None:
+            raise RuntimeError(f"host 0 failed: {failed}")
+    if failure is not None:
+        raise failure
+    return result
 
 
 def shutdown_distributed() -> None:

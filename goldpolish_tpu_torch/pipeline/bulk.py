@@ -151,8 +151,20 @@ def resolve_mappings(cfg: PipelineConfig, target_index,
             f"{os.path.basename(cfg.seqs_to_polish)}"
             f".k{cfg.k_ntlink}.w{cfg.w_ntlink}.z1000.mapping.tsv"
         )
-        if not fresh(path):
-            _ntlink_pair(cfg, path)
+        # ntLink names and places its outputs itself (in the CWD, or beside
+        # a target given with its directory), so hosts sharing a directory
+        # cannot each map into files of their own: host 0 alone maps, and
+        # the other hosts wait for it and then read its mapping
+        def ntlink_pair():
+            if not fresh(path):
+                subprocess.run(
+                    ["ntLink", f"t={cfg.threads}", f"target={cfg.seqs_to_polish}",
+                     f"reads={cfg.polishing_seqs}", "pair", "verbose=True",
+                     f"k={cfg.k_ntlink}", f"w={cfg.w_ntlink}", "sensitive=True"],
+                    check=True,
+                )
+
+        dist.on_host_0(ntlink_pair)
     elif not path:
         from .. import mapper as internal_mapper
 
@@ -174,31 +186,6 @@ def resolve_mappings(cfg: PipelineConfig, target_index,
         path, target_index,
         mx_max_mapped_seqs_per_target_10kbp=cfg.mx_max_reads_per_10kbp,
     )
-
-
-def _ntlink_pair(cfg: PipelineConfig, path: str) -> None:
-    """`ntLink pair` run in a directory of this host and process beside
-    the CWD, its outputs then renamed into the CWD, the mapping TSV `path`
-    last: ntLink writes its files in place, and the hosts of a multi-host
-    run map the same input into the same CWD at once, so none may read (or
-    take as fresh) a half-written mapping."""
-    import shutil
-    import subprocess
-
-    run_dir = f"{path}.{socket.gethostname()}.{os.getpid()}.d"
-    os.makedirs(run_dir)
-    try:
-        subprocess.run(
-            ["ntLink", f"t={cfg.threads}",
-             f"target={os.path.abspath(cfg.seqs_to_polish)}",
-             f"reads={os.path.abspath(cfg.polishing_seqs)}", "pair", "verbose=True",
-             f"k={cfg.k_ntlink}", f"w={cfg.w_ntlink}", "sensitive=True"],
-            check=True, cwd=run_dir,
-        )
-        for name in sorted(os.listdir(run_dir), key=lambda n: n == path):
-            os.replace(os.path.join(run_dir, name), name)
-    finally:
-        shutil.rmtree(run_dir, ignore_errors=True)
 
 
 @dataclass
@@ -379,6 +366,13 @@ def run_bulk(cfg: PipelineConfig) -> dict:
         signal_safe=True,
     )
     try:
+        # the batch files of parallel.distributed carry the multi-host merge
+        # and, on one host, the checkpoint replay; the group is joined
+        # before the mappings, which host 0 alone may make; a group joined
+        # already (targeted mode's) is used, and left to the caller that
+        # joined it
+        own_group = not dist.in_group()
+        host_id, n_hosts = dist.init_distributed()
         builder = make_builder(cfg, ws.dir)
         records = ((r.name, r.seq) for r in fasta.read_seqs(cfg.seqs_to_polish))
         all_batches = list(engine.make_batches(records, cfg.batch_size))
@@ -396,12 +390,6 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                   "resumed_batches": 0, "device_filled_batches": 0}
         t_setup = _time.monotonic() - t_start  # index + mapping + builder
         timing_sum: dict = {}
-
-        # the batch files of parallel.distributed carry the multi-host merge
-        # and, on one host, the checkpoint replay; a group joined already
-        # (targeted mode's) is used, and left to the caller that joined it
-        own_group = not dist.in_group()
-        host_id, n_hosts = dist.init_distributed()
         my_batches = [
             b for b in all_batches
             if dist.host_owns_batch(b.index, host_id, n_hosts)

@@ -347,23 +347,9 @@ def _run_targeted_inner(cfg: PipelineConfig, gaps_fa: str, remapped_paf: str,
     from ..parallel import distributed as dist
     from . import bulk
 
-    if n_hosts == 1:
-        n_gaps = _prepare(cfg, gaps_fa, remapped_paf, mark)
-    else:
-        # host 0 alone writes the gap file and the remapped PAF; a failure
-        # there reaches every host, none waits out the barrier for it
-        n_gaps, failure = None, None
-        if host_id == 0:
-            try:
-                n_gaps = _prepare(cfg, gaps_fa, remapped_paf, mark)
-            except Exception as e:  # noqa: BLE001 — raised after the barrier
-                failure = e
-        dist.barrier()
-        n_gaps = dist.from_host_0(n_gaps)
-        if failure is not None:
-            raise failure
-        if n_gaps is None:
-            raise RuntimeError("host 0 failed to extract or map the targets")
+    # host 0 alone writes the gap file and the remapped PAF; a failure
+    # there reaches every host
+    n_gaps = dist.on_host_0(lambda: _prepare(cfg, gaps_fa, remapped_paf, mark))
     if n_gaps == 0:
         if host_id == 0:
             log.info("no target regions found; copying input through")

@@ -96,7 +96,7 @@ def test_init_distributed_joins_and_leaves_a_group(monkeypatch):
         dist.init_distributed(f"127.0.0.1:{port}", 2, 2)
 
 
-def test_configured_hosts_and_target_refusal(monkeypatch):
+def test_configured_hosts_and_target_accepted(monkeypatch):
     """configured_hosts reads the hosts before any rendezvous; check_ported
     accepts --target on one host and on many (targeted mode runs there:
     tests/test_torch_multihost.py)."""
@@ -141,6 +141,84 @@ def test_group_joined_once_is_reused(monkeypatch):
     finally:
         dist.shutdown_distributed()
     assert not dist.in_group()
+
+
+_ON_HOST_0 = """
+import sys
+sys.path.insert(0, {repo!r})
+from goldpolish_tpu_torch.parallel import distributed as dist
+
+host_id, n_hosts = dist.init_distributed()
+calls = []
+
+def fn(value):
+    calls.append(host_id)
+    if value is None:
+        raise ValueError("boom")
+    return value
+
+assert dist.on_host_0(lambda: fn(host_id + 5)) == 5
+try:
+    dist.on_host_0(lambda: fn(None))
+except Exception as e:  # noqa: BLE001
+    print(type(e).__name__, e)
+print("calls", calls)
+dist.shutdown_distributed()
+"""
+
+
+def test_on_host_0_result_and_failure_reach_every_host():
+    """Two ranks: on_host_0 runs fn on host 0 alone and returns its result
+    on both; when fn raises there, host 0 raises it and rank 1 a
+    RuntimeError naming it, instead of waiting on host 0."""
+    import socket
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+               "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(rank)}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _ON_HOST_0.format(repo=repo)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [e[-2000:] for _o, e in outs]
+    assert outs[0][0].splitlines() == ["ValueError boom", "calls [0, 0]"]
+    assert outs[1][0].splitlines() == [
+        "RuntimeError host 0 failed: ValueError('boom')", "calls []"]
+
+
+_INDEX_LOOP = """
+import sys
+sys.path.insert(0, {repo!r})
+from goldpolish_tpu_torch.io import seqindex
+
+print(sorted({{len(seqindex.SeqIndex.build({fa!r})) for _ in range(10)}}))
+"""
+
+
+def test_index_built_by_two_hosts_at_once(tmp_path):
+    """Two processes index one input at once, as the hosts of a multi-host
+    run do, twenty times each: every build holds every record (the native
+    scanner's TSV is a temporary of the host and process)."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    fa = str(tmp_path / "many.fa")
+    fasta.write_fasta(fa, ((f"r{i}", "ACGT" * 20) for i in range(100000)))
+    procs = [subprocess.Popen([sys.executable, "-c", _INDEX_LOOP.format(repo=repo, fa=fa)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [e[-2000:] for _o, e in outs]
+    assert [o.strip() for o, _e in outs] == ["[100000]", "[100000]"]
+    assert sorted(os.listdir(tmp_path)) == ["many.fa"]
 
 
 # tests/test_distributed.py:53

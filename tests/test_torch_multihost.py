@@ -11,14 +11,16 @@ their one-process run only), and numpy with the sealer on, whose
 "<id> " headers the merge must keep.  The JAX package's own two-process
 hybrid run fails there (its scanner's mesh spans both processes' devices,
 goldpolish_tpu/ops/scan_conv.py:298-317); the port's scanner shards over
-its own process's devices only.  --target on two ranks (numpy and hybrid)
-against one process and the JAX package's one-process run, and ntLink
-mapping into one shared CWD (a stub that writes slowly).  Then two
+its own process's devices only.  --target on two ranks (numpy and hybrid, and
+host 0 preparing for longer than the rendezvous timeout) against one
+process and the JAX package's one-process run, and ntLink mapping into
+one shared CWD (a stub that writes slowly; host 0 alone maps).  Then two
 failures with --checkpoint: rank 1 killed mid-run, and a published batch
 file lost before the reaper read it; both ranks rerun and resume to the
 same bytes."""
 
 import os
+import shutil
 import signal
 import socket
 import subprocess
@@ -97,6 +99,25 @@ elif patch == "map_after":
         return resolve(*a, **kw)
 
     bulk.resolve_mappings = resolve_after
+elif patch == "slow_prepare":
+    # the rendezvous timeout lowered to 3 s; once both ranks are ready (a
+    # file each in the directory `arg`), host 0 spends 6 s extracting and
+    # mapping the targets, past that timeout, while rank 1 waits for it
+    from goldpolish_tpu_torch.pipeline import targeted
+
+    dist.RENDEZVOUS_TIMEOUT_S = 3
+    rank = os.environ["JAX_PROCESS_ID"]
+    open(os.path.join(arg, rank), "w").close()
+    while len(os.listdir(arg)) < 2:
+        time.sleep(0.05)
+    if rank == "0":
+        prepare = targeted._prepare
+
+        def slow_prepare(*a, **kw):
+            time.sleep(6)
+            return prepare(*a, **kw)
+
+        targeted._prepare = slow_prepare
 elif patch == "empty_batch1":
     # rank 1 publishes batch 1 as an empty file
     write = dist.write_batch_output
@@ -281,20 +302,22 @@ def target_reference(reference):
 TARGET_ARMS = ("numpy", "hybrid")
 
 
-def _two_rank_target(reference, target_reference, arm):
-    """Two ranks' --target run of `arm`: the merged output equals one
-    process's and the JAX package's; host 0 alone wrote it and deleted the
-    gap files, and no rank left a file behind."""
+def _two_rank_target(reference, target_reference, arm, name=None, patch=None):
+    """Two ranks' --target run of `arm` (each rank started with `patch`):
+    the merged output equals one process's and the JAX package's; host 0
+    alone wrote it and deleted the gap files, and no rank left a file
+    behind."""
     tmp = reference[0]
     files, jax_bytes, ports = target_reference
     backend, env, extra, _patch = ARMS[arm]
-    out_dir = tmp / f"target_multi_{arm}"
+    name = name or arm
+    out_dir = tmp / f"target_multi_{name}"
     out_dir.mkdir()
     port = _free_port()
     procs = [_start(_argv(files, str(out_dir / "out.fa"),
-                          str(tmp / f"ws_target_multi_{arm}{rank}"), backend,
+                          str(tmp / f"ws_target_multi_{name}{rank}"), backend,
                           "--target", *extra),
-                    _env(env, rank, port))
+                    _env(env, rank, port, **(patch or {})), patch)
              for rank in range(2)]
     results = [_finish(p) for p in procs]
     assert [rc for rc, _e in results] == [0, 0], [e[-2000:] for _rc, e in results]
@@ -308,10 +331,19 @@ def _two_rank_target(reference, target_reference, arm):
     assert os.listdir(out_dir) == ["out.fa"]
 
 
-def test_target_refused_on_many_hosts(reference, target_reference):
-    """--target is no longer refused on many hosts: two ranks (numpy
-    backend) give one process's output and the JAX package's."""
+def test_target_on_many_hosts_numpy(reference, target_reference):
+    """--target runs on many hosts: two ranks (numpy backend) give one
+    process's output and the JAX package's."""
     _two_rank_target(reference, target_reference, "numpy")
+
+
+def test_target_waits_past_rendezvous_timeout(reference, target_reference, tmp_path):
+    """Rank 1 waits 6 s for host 0's extraction and mapping, past a
+    rendezvous timeout lowered to 3 s: the group's collectives wait
+    BARRIER_TIMEOUT_S on every host, so both ranks finish to one process's
+    output and the JAX package's."""
+    _two_rank_target(reference, target_reference, "numpy", "slow_prepare",
+                     {"PATCH": "slow_prepare", "PATCH_ARG": str(tmp_path)})
 
 
 def test_target_on_many_hosts_hybrid(reference, target_reference):
@@ -322,12 +354,13 @@ def test_target_on_many_hosts_hybrid(reference, target_reference):
 
 
 def test_ntlink_on_many_hosts_in_one_cwd(reference, tmp_path):
-    """Two ranks map with ntLink in one shared CWD.  The stub writes its
-    mapping TSV in two halves two seconds apart, as a real run writes in
-    place, and marks the first half written; rank 1 starts mapping only
-    then, while rank 0's stub sleeps.  Each rank runs ntLink in a directory
-    of its own and publishes the TSV by rename, so rank 1 neither reads nor
-    takes as fresh rank 0's half file, and the merged output equals one
+    """Two ranks map with ntLink in one shared CWD.  The stub names its
+    mapping TSV after its target= argument, as ntLink prefixes its outputs
+    with the target, and writes it in two halves two seconds apart, as a
+    real run writes in place, marking the first half written; rank 1
+    starts mapping only then, while rank 0's stub sleeps.  Host 0 alone
+    runs ntLink, with one process's argv, and rank 1 waits for it, so no
+    rank reads a half-written TSV and the merged output equals one
     process's with the same stub."""
     from goldpolish_tpu_torch import mapper as internal_mapper
 
@@ -336,29 +369,43 @@ def test_ntlink_on_many_hosts_in_one_cwd(reference, tmp_path):
     internal_mapper.write_mapping_tsv(draft, reads, tsv)
     with open(tsv, "rb") as f:
         data = f.read()
-    half, rest, marker = (str(tmp_path / n) for n in ("half", "rest", "half_written"))
+    half, rest, marker, calls = (str(tmp_path / n)
+                                 for n in ("half", "rest", "half_written", "calls"))
     with open(half, "wb") as a, open(rest, "wb") as b:
         a.write(data[: len(data) // 2])
         b.write(data[len(data) // 2:])
-    artifact = f"{os.path.basename(draft)}.k88.w1000.z1000.mapping.tsv"
+    artifact = "draft.fa.k88.w1000.z1000.mapping.tsv"
     bin_dir = tmp_path / "stub_bin"
     bin_dir.mkdir()
     stub = bin_dir / "ntLink"
-    stub.write_text(f"#!/bin/sh\ncat {half} > {artifact}\ntouch {marker}\nsleep 2\n"
-                    f"cat {rest} >> {artifact}\n")
+    stub.write_text(
+        f'#!/bin/sh\necho "$@" >> {calls}\n'
+        'for a in "$@"; do case $a in target=*) t=${a#target=};; esac; done\n'
+        f'out="$t.k88.w1000.z1000.mapping.tsv"\n'
+        f'cat {half} > "$out"\ntouch {marker}\nsleep 2\ncat {rest} >> "$out"\n')
     stub.chmod(0o755)
     path = {"PATH": f"{bin_dir}:{os.environ['PATH']}"}
 
     def argv(cwd, ws):
-        return [draft, reads, str(cwd / "out.fa"), "-k", "32", "-b", "1",
+        # the draft in the CWD, named without its directory
+        shutil.copy(draft, cwd / "draft.fa")
+        return ["draft.fa", reads, str(cwd / "out.fa"), "-k", "32", "-b", "1",
                 "--device", "cpu", "--backend", "numpy", "-m", str(tmp_path / ws),
                 *NO_SEALER]
+
+    def stub_calls():
+        with open(calls) as f:
+            lines = f.read().splitlines()
+        os.remove(calls)
+        return lines
 
     single, shared = tmp_path / "single_cwd", tmp_path / "shared_cwd"
     single.mkdir()
     shared.mkdir()
     rc, err = _finish(_start(argv(single, "ws_single"), _env(path), cwd=single))
     assert rc == 0, err[-2000:]
+    one_process = stub_calls()
+    assert len(one_process) == 1 and f"target=draft.fa reads={reads} pair" in one_process[0]
     os.remove(marker)
     port = _free_port()
     patches = (None, {"PATCH": "map_after", "PATCH_ARG": marker})
@@ -367,9 +414,10 @@ def test_ntlink_on_many_hosts_in_one_cwd(reference, tmp_path):
              for rank in range(2)]
     results = [_finish(p) for p in procs]
     assert [rc for rc, _e in results] == [0, 0], [e[-2000:] for _rc, e in results]
+    assert stub_calls() == one_process
     assert _read(str(shared / "out.fa")) == _read(str(single / "out.fa"))
     assert _read(str(shared / artifact)) == data
-    assert sorted(os.listdir(shared)) == sorted([artifact, "out.fa"])
+    assert sorted(os.listdir(shared)) == sorted(os.listdir(single))
 
 
 def test_reaper_failure_fails_host_0(reference):
