@@ -35,6 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from .ops import bloom
+from .utils import trace
 
 # reference: src/goldpolish_targeted_bfs.cpp:45-53
 KMER_THRESHOLD_A = 4.66943
@@ -150,13 +151,16 @@ class BFBuilder:
 
     def read_stream(self, target_ids: list[str]) -> tuple[list[bytes], list[int]]:
         """The batch's chosen reads, in order, and each one's threshold (its
-        target's): the input of the host stream fill and the device fill."""
+        target's): the input of the host stream fill and the device fill.
+        Its span, fill.reads, is the fill's Python share (choosing and
+        gathering the reads, with the interpreter lock held)."""
         reads: list[bytes] = []
         thrs: list[int] = []
-        for _tid, chosen, kmer_threshold in self._choose_reads(target_ids):
-            for rid in chosen:
-                reads.append(self.mapped_index.get_seq(rid))
-                thrs.append(kmer_threshold)
+        with trace.span("fill.reads"):
+            for _tid, chosen, kmer_threshold in self._choose_reads(target_ids):
+                for rid in chosen:
+                    reads.append(self.mapped_index.get_seq(rid))
+                    thrs.append(kmer_threshold)
         return reads, thrs
 
     def _choose_reads(self, target_ids: list[str]):

@@ -50,6 +50,7 @@ from ..mappings import AllMappings
 from ..parallel import distributed as dist
 from ..polish import mask as mask_mod
 from ..polish import multik
+from ..utils import trace
 from ..utils.log import get_logger
 from . import engine
 
@@ -209,14 +210,29 @@ def _pool_worker(records):
     )
 
 
+def _device_fill(cfg: PipelineConfig) -> bool:
+    return cfg.device_bf_build and cfg.backend == "jax"
+
+
 def build_batch_bfs(builder: BFBuilder, cfg: PipelineConfig, ids: list[str]):
     """Per-batch filter build, host or fast-mode device (kernel 5 on
     cfg.device: a superset filter, documented deviation; in-process only —
     fork-pool workers never run the jax backend).  A failed device fill
     raises."""
-    if cfg.device_bf_build and cfg.backend == "jax":
+    if _device_fill(cfg):
         return builder.build_batch_device(ids, device=cfg.device)
     return builder.build_batch(ids)
+
+
+def _batch_tags(batch: engine.Batch) -> dict:
+    """The attributes of a batch's spans: its index and draft bases."""
+    return {"batch": batch.index, "bases": sum(len(s) for _h, s in batch.records)}
+
+
+def _in_batch(batch: engine.Batch, fn, *args):
+    """fn(*args) on an executor thread, its spans tagged with the batch."""
+    with trace.tags(**_batch_tags(batch)):
+        return fn(*args)
 
 
 def polish_batch_records(records, builder: BFBuilder, cfg: PipelineConfig,
@@ -230,24 +246,27 @@ def polish_batch_records(records, builder: BFBuilder, cfg: PipelineConfig,
 
     Per-stage wall times land in stats["timing"] — the in-process
     equivalent of the reference's opt-in GNU-time rule wrapping
-    (reference: goldpolish-make:36-41, smk --benchmark)."""
-    import time as _time
-
+    (reference: goldpolish-make:36-41, smk --benchmark): the durations of
+    the stages' spans (utils/trace.py)."""
+    held = trace.now()
     ids = [h.split()[0] for h, _ in records]
-    timing: dict = {}
-    t0 = _time.monotonic()
+    timing: dict = {"bf_build_s": 0.0}
     if batch_bfs is None:
-        batch_bfs = build_batch_bfs(builder, cfg, ids)
-    timing["bf_build_s"] = round(_time.monotonic() - t0, 3)
+        # filled inline: the batch waits from here to its filters in hand
+        with trace.span("fill.build",
+                        where="device" if _device_fill(cfg) else "host") as fill:
+            batch_bfs = build_batch_bfs(builder, cfg, ids)
+        trace.record("fill.wait", held, fill.t1)
+        timing["bf_build_s"] = round(fill.seconds, 3)
     stats: dict = {"timing": timing}
     # 1. multi-k ntEdit with rollback guard
-    t0 = _time.monotonic()
-    edited, mk_stats = multik.polish_multik(
-        records, batch_bfs, k_values=cfg.k_values,
-        x=cfg.ntedit_x, y=cfg.ntedit_y, backend=cfg.backend,
-        device=cfg.device,
-    )
-    timing["ntedit_s"] = round(_time.monotonic() - t0, 3)
+    with trace.span("edit") as edit:
+        edited, mk_stats = multik.polish_multik(
+            records, batch_bfs, k_values=cfg.k_values,
+            x=cfg.ntedit_x, y=cfg.ntedit_y, backend=cfg.backend,
+            device=cfg.device,
+        )
+    timing["ntedit_s"] = round(edit.seconds, 3)
     stats["ntedit"] = mk_stats
     if cfg.run_sealer:
         # 2. mask short runs (soft, k = first k)
@@ -266,15 +285,15 @@ def polish_batch_records(records, builder: BFBuilder, cfg: PipelineConfig,
             verbose=cfg.verbose,
         )
         bfs_by_k = {k: batch_bfs.bf_for_k(k) for k in cfg.k_values}
-        t0 = _time.monotonic()
-        sealed, seal_stats = sealer_mod.seal_records(
-            prepped, bfs_by_k, scfg,
-            # the host search for numpy and hybrid alike, as the JAX
-            # package passes; the jax backend's lockstep device DBG
-            backend="jax" if cfg.backend == "jax" else "numpy",
-            device=cfg.device,
-        )
-        timing["sealer_s"] = round(_time.monotonic() - t0, 3)
+        with trace.span("seal") as seal:
+            sealed, seal_stats = sealer_mod.seal_records(
+                prepped, bfs_by_k, scfg,
+                # the host search for numpy and hybrid alike, as the JAX
+                # package passes; the jax backend's lockstep device DBG
+                backend="jax" if cfg.backend == "jax" else "numpy",
+                device=cfg.device,
+            )
+        timing["sealer_s"] = round(seal.seconds, 3)
         stats["sealer"] = seal_stats
     else:
         sealed = edited
@@ -341,10 +360,12 @@ def run_bulk(cfg: PipelineConfig) -> dict:
     """Polish cfg.seqs_to_polish with cfg.polishing_seqs -> cfg.output_seqs.
 
     Returns aggregate stats.  Output record order always equals input order
-    (ordered-writer / reaper contract).
+    (ordered-writer / reaper contract).  The run's spans (utils/trace.py)
+    come back as totals["trace"]; totals["timing"] holds their durations:
+    wall_s is bulk.run's (the run after its startup checks), setup_s
+    bulk.setup's, the other keys the sums over batches of each batch's
+    stats["timing"].
     """
-    import time as _time
-
     check_ported(cfg)
     # static config error, not a per-batch condition: fail at startup
     # (the device fill takes k <= KHALO + 1, as the JAX build's row halo)
@@ -358,7 +379,30 @@ def run_bulk(cfg: PipelineConfig) -> dict:
             f"{cfg.k_values} — disable device_bf_build/fill_overlap or drop "
             "the larger k"
         )
-    t_start = _time.monotonic()
+    with trace.collect() as col:
+        with trace.span("bulk.run") as run:
+            totals = _run_bulk(cfg)
+    timing = totals["timing"] = {"wall_s": round(run.seconds, 3), **totals["timing"]}
+    totals["trace"] = col.export()
+    totals["kernel_launches"] = kernel_launches()
+    sums = {k: v for k, v in timing.items() if k not in ("wall_s", "setup_s")}
+    log.info(
+        "polished %d contigs (%d bases) in %d batches -> %s",
+        totals["contigs"], totals["bases_out"], totals["batches"],
+        cfg.output_seqs,
+    )
+    log.info(
+        "timing: wall %.3fs, setup %.1fs; batch-stage sums: %s",
+        run.seconds, timing["setup_s"],
+        " ".join(f"{k}={v:.1f}s" for k, v in sorted(sums.items())),
+    )
+    log.info("kernel launches (this process): %s",
+             json.dumps(totals["kernel_launches"]))
+    log.info("spans: %s", trace.summary(totals["trace"]["spans"]))
+    return totals
+
+
+def _run_bulk(cfg: PipelineConfig) -> dict:
     own_group = False
     ws = engine.Workspace(
         prefix=f"goldpolish-tpu-{os.getpid()}",
@@ -366,29 +410,30 @@ def run_bulk(cfg: PipelineConfig) -> dict:
         signal_safe=True,
     )
     try:
-        # the batch files of parallel.distributed carry the multi-host merge
-        # and, on one host, the checkpoint replay; the group is joined
-        # before the mappings, which host 0 alone may make; a group joined
-        # already (targeted mode's) is used, and left to the caller that
-        # joined it
-        own_group = not dist.in_group()
-        host_id, n_hosts = dist.init_distributed()
-        builder = make_builder(cfg, ws.dir)
-        records = ((r.name, r.seq) for r in fasta.read_seqs(cfg.seqs_to_polish))
-        all_batches = list(engine.make_batches(records, cfg.batch_size))
-        manifest = engine.CheckpointManifest(cfg.checkpoint or None)
-        # resume data plane: with a checkpoint configured, every finished
-        # batch's output is ALSO published as an atomically-renamed FASTA
-        # next to the manifest BEFORE the batch is marked done, so a
-        # preempted run replays completed batches from disk instead of
-        # re-polishing (restores — and beats — the reference's make-level
-        # resumability, goldpolish-make:45 .SECONDARY)
-        ckpt_dir = (cfg.checkpoint + ".batches") if cfg.checkpoint else None
-        if ckpt_dir:
-            os.makedirs(ckpt_dir, exist_ok=True)
-        totals = {"batches": len(all_batches), "contigs": 0, "bases_out": 0,
-                  "resumed_batches": 0, "device_filled_batches": 0}
-        t_setup = _time.monotonic() - t_start  # index + mapping + builder
+        with trace.span("bulk.setup") as setup:  # index + mapping + builder
+            # the batch files of parallel.distributed carry the multi-host
+            # merge and, on one host, the checkpoint replay; the group is
+            # joined before the mappings, which host 0 alone may make; a
+            # group joined already (targeted mode's) is used, and left to
+            # the caller that joined it
+            own_group = not dist.in_group()
+            host_id, n_hosts = dist.init_distributed()
+            builder = make_builder(cfg, ws.dir)
+            records = ((r.name, r.seq) for r in fasta.read_seqs(cfg.seqs_to_polish))
+            all_batches = list(engine.make_batches(records, cfg.batch_size))
+            manifest = engine.CheckpointManifest(cfg.checkpoint or None)
+            # resume data plane: with a checkpoint configured, every
+            # finished batch's output is ALSO published as an
+            # atomically-renamed FASTA next to the manifest BEFORE the batch
+            # is marked done, so a preempted run replays completed batches
+            # from disk instead of re-polishing (restores — and beats — the
+            # reference's make-level resumability, goldpolish-make:45
+            # .SECONDARY)
+            ckpt_dir = (cfg.checkpoint + ".batches") if cfg.checkpoint else None
+            if ckpt_dir:
+                os.makedirs(ckpt_dir, exist_ok=True)
+            totals = {"batches": len(all_batches), "contigs": 0, "bases_out": 0,
+                      "resumed_batches": 0, "device_filled_batches": 0}
         timing_sum: dict = {}
         my_batches = [
             b for b in all_batches
@@ -429,7 +474,6 @@ def run_bulk(cfg: PipelineConfig) -> dict:
             # fill releases the GIL and parallelizes over k internally.
             import concurrent.futures as _cf
             import threading as _threading
-            import time as _time2
 
             fill_exec = _cf.ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="bf-fill"
@@ -440,10 +484,17 @@ def run_bulk(cfg: PipelineConfig) -> dict:
             fill_done_cv = _threading.Condition(fill_lock)
             pos_of = {b.index: p for p, b in enumerate(my_batches)}
 
-            def _timed_fill(ids):
-                t0 = _time2.monotonic()
-                bfs = build_batch_bfs(builder, cfg, ids)
-                return bfs, _time2.monotonic() - t0
+            def _timed_fill(batch, queued=None, where=None):
+                """The batch's filters and their fill's seconds; `queued`:
+                when it was handed to the fill thread (trace.now())."""
+                with trace.tags(**_batch_tags(batch)):
+                    if queued is not None:
+                        trace.record("fill.queued", queued, trace.now())
+                    with trace.span("fill.build", where=where or (
+                            "device" if _device_fill(cfg) else "host")) as fill:
+                        bfs = build_batch_bfs(
+                            builder, cfg, [h.split()[0] for h, _ in batch.records])
+                return bfs, fill.seconds
 
             def _ensure_fill(pos: int, required: bool = False):
                 if not 0 <= pos < len(my_batches):
@@ -459,8 +510,7 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                 with fill_lock:
                     fut = fill_futs.get(b.index)
                     if fut is None and b.index not in fill_started:
-                        ids = [h.split()[0] for h, _ in b.records]
-                        fut = fill_exec.submit(_timed_fill, ids)
+                        fut = fill_exec.submit(_timed_fill, b, trace.now())
                         fill_started.add(b.index)
                         fill_futs[b.index] = fut
                 return fut
@@ -502,17 +552,18 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                             dev_futs.append(fut)
                             fill_started.add(b.index)
                             fill_futs[b.index] = fut
-                        t0 = _time2.monotonic()
                         try:
                             # everything between claim and fill sits inside
                             # this try: a claimed-but-unresolved future
                             # blocks its consumer forever
-                            ids = [h.split()[0] for h, _ in b.records]
-                            bfs = builder.build_batch_device(ids, device=cfg.device)
+                            with trace.tags(**_batch_tags(b)), trace.span(
+                                    "fill.build", where="device") as fill:
+                                ids = [h.split()[0] for h, _ in b.records]
+                                bfs = builder.build_batch_device(ids, device=cfg.device)
                         except Exception as e:  # noqa: BLE001 — to the consumer
                             fut.set_exception(e)
                             return
-                        fut.set_result((bfs, _time2.monotonic() - t0))
+                        fut.set_result((bfs, fill.seconds))
 
                 dev_fill_thread = _threading.Thread(
                     target=_dev_fill_loop, name="bf-fill-dev", daemon=True
@@ -525,7 +576,7 @@ def run_bulk(cfg: PipelineConfig) -> dict:
 
                 _atexit.register(dev_fill_thread.join, 300)
 
-            def _hedged_result(fut, records):
+            def _hedged_result(fut, batch):
                 """Consume a fill future -> (filters, seconds, from_device).
                 A DEVICE-claimed fill still in flight when its consumer
                 arrives gets a host-fill HEDGE, and the first to finish wins
@@ -536,12 +587,11 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                 dev = fut in dev_futs
                 if not dev or fut.done():
                     return (*fut.result(), dev)
-                ids = [h.split()[0] for h, _ in records]
                 host_fut: _cf.Future = _cf.Future()
 
                 def run():
                     try:
-                        host_fut.set_result(_timed_fill(ids))
+                        host_fut.set_result(_timed_fill(batch, where="hedge"))
                     except Exception as e:  # noqa: BLE001 — to the consumer
                         host_fut.set_exception(e)
 
@@ -564,12 +614,14 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                 return q
 
             async def worker(batch: engine.Batch):
+                held = trace.now()
                 pos = pos_of[batch.index]
                 fut = _ensure_fill(pos, required=True)
                 _ensure_fill(_next_live(pos))  # the lookahead
                 batch_bfs, fill_s, from_device = await loop.run_in_executor(
-                    None, _hedged_result, fut, batch.records
+                    None, _hedged_result, fut, batch
                 )
+                trace.record("fill.wait", held, trace.now(), **_batch_tags(batch))
                 totals["device_filled_batches"] += (
                     from_device or cfg.device_bf_build
                 )
@@ -577,8 +629,8 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                     fill_futs.pop(batch.index, None)
                     fill_done_cv.notify_all()
                 res = await loop.run_in_executor(
-                    None, polish_batch_records, batch.records, builder, cfg,
-                    batch_bfs,
+                    None, _in_batch, batch, polish_batch_records,
+                    batch.records, builder, cfg, batch_bfs,
                 )
                 # the fill ran off the critical path; account it separately
                 res.stats["timing"]["bf_fill_bg_s"] = round(fill_s, 3)
@@ -586,10 +638,26 @@ def run_bulk(cfg: PipelineConfig) -> dict:
         else:
             async def worker(batch: engine.Batch):
                 res = await loop.run_in_executor(
-                    None, polish_batch_records, batch.records, builder, cfg
+                    None, _in_batch, batch, polish_batch_records,
+                    batch.records, builder, cfg,
                 )
                 totals["device_filled_batches"] += cfg.device_bf_build
                 return res
+
+        # a batch's batch.write span runs from its result in hand to its
+        # records written (none for a replayed batch)
+        ready: dict = {}  # id(result) -> (the batch's tags, trace.now())
+        polish_one = worker
+
+        async def worker(batch: engine.Batch):  # noqa: F811
+            res = await polish_one(batch)
+            ready[id(res)] = (_batch_tags(batch), trace.now())
+            return res
+
+        def written(result: BatchResult) -> None:
+            tags, t0 = ready.pop(id(result), (None, None))
+            if tags is not None:
+                trace.record("batch.write", t0, trace.now(), **tags)
 
         if ckpt_dir and n_hosts == 1:
             # multi-host publishes per-batch files to the reaper already;
@@ -626,6 +694,7 @@ def run_bulk(cfg: PipelineConfig) -> dict:
 
             def sink_batch(index, result: BatchResult):
                 dist.write_batch_output(cfg.output_seqs, index, result.records)
+                written(result)
                 for _h, seq in result.records:
                     totals["contigs"] += 1
                     totals["bases_out"] += len(seq)
@@ -702,6 +771,7 @@ def run_bulk(cfg: PipelineConfig) -> dict:
                     writer.write((header, seq))
                     totals["contigs"] += 1
                     totals["bases_out"] += len(seq)
+                written(result)
                 for key, val in result.stats.get("timing", {}).items():
                     timing_sum[key] = timing_sum.get(key, 0.0) + val
 
@@ -736,22 +806,8 @@ def run_bulk(cfg: PipelineConfig) -> dict:
             shutil.rmtree(ckpt_dir, ignore_errors=True)
             if cfg.checkpoint and os.path.exists(cfg.checkpoint):
                 os.remove(cfg.checkpoint)
-        wall = _time.monotonic() - t_start
-        totals["timing"] = {"wall_s": round(wall, 3), "setup_s": round(t_setup, 3),
+        totals["timing"] = {"setup_s": round(setup.seconds, 3),
                             **{k: round(v, 3) for k, v in timing_sum.items()}}
-        totals["kernel_launches"] = kernel_launches()
-        log.info(
-            "polished %d contigs (%d bases) in %d batches -> %s",
-            totals["contigs"], totals["bases_out"], totals["batches"],
-            cfg.output_seqs,
-        )
-        log.info(
-            "timing: wall %.3fs, setup %.1fs; batch-stage sums: %s",
-            wall, t_setup,
-            " ".join(f"{k}={v:.1f}s" for k, v in sorted(timing_sum.items())),
-        )
-        log.info("kernel launches (this process): %s",
-                 json.dumps(totals["kernel_launches"]))
         return totals
     finally:
         if own_group:

@@ -41,6 +41,7 @@ from dataclasses import replace
 
 from ..config import PipelineConfig
 from ..io import fasta
+from ..utils import trace
 from ..utils.log import get_logger
 
 log = get_logger("targeted")
@@ -247,8 +248,9 @@ def insert_polished_gaps(fasta_path: str, gaps_path: str, out_path: str):
 def run_targeted(cfg: PipelineConfig) -> dict:
     """Full targeted pipeline (reference smk target rule).
 
-    Stage wall times are logged with cfg.benchmark (the reference wraps
-    each snakemake rule in memusg/time -v, smk:29-37); intermediates are
+    Each stage is a target.<stage> span (utils/trace.py), its seconds
+    logged with cfg.benchmark (the reference wraps each snakemake rule in
+    memusg/time -v, smk:29-37); intermediates are
     deleted unless cfg.target_dev (reference goldpolish-target.py cleanup
     of INTERMEDIATE_* files, kept with --target_dev).
 
@@ -258,22 +260,24 @@ def run_targeted(cfg: PipelineConfig) -> dict:
     batches of the gaps, which host 0's reaper merges; a barrier then holds
     host 0 until no host reads the gap files, and host 0 alone splices,
     writes the output and deletes the intermediates."""
-    import time as _time
-
     from ..parallel import distributed as dist
     from . import bulk
 
     bulk.check_ported(cfg)
-    t_start = _time.monotonic()
-    marks: list[tuple[str, float]] = []
+    t_start = trace.now()
+    running: list = []  # the stage under way and its start
 
-    def mark(stage: str):
-        marks.append((stage, _time.monotonic()))
-        if cfg.benchmark and len(marks) > 1:
-            log.info(
-                "benchmark: %s %.2fs", marks[-2][0],
-                marks[-1][1] - marks[-2][1],
-            )
+    def mark(stage: str | None, logged: bool = True):
+        """End the running stage's span (its seconds logged with
+        cfg.benchmark) and start `stage` (None: no further stage)."""
+        t = trace.now()
+        if running:
+            name, t0 = running.pop()
+            trace.record(f"target.{name}", t0, t)
+            if cfg.benchmark and logged:
+                log.info("benchmark: %s %.2fs", name, (t - t0) / 1e9)
+        if stage is not None:
+            running.append((stage, t))
 
     prefix = os.path.join(
         os.path.dirname(os.path.abspath(cfg.output_seqs)) or ".",
@@ -286,10 +290,12 @@ def run_targeted(cfg: PipelineConfig) -> dict:
     host_id, n_hosts = dist.init_distributed()
     try:
         return _run_targeted_inner(
-            cfg, gaps_fa, remapped_paf, polished_gaps, mark, marks, t_start,
+            cfg, gaps_fa, remapped_paf, polished_gaps, mark, t_start,
             host_id, n_hosts,
         )
     finally:
+        # a run that returns early or fails ends its stage unlogged
+        mark(None, logged=False)
         # intermediates go unless --target_dev (reference
         # goldpolish-target.py INTERMEDIATE_* cleanup), on every exit path
         # including the zero-gap early return and errors; host 0 wrote
@@ -340,10 +346,8 @@ def _prepare(cfg: PipelineConfig, gaps_fa: str, remapped_paf: str, mark) -> int:
 
 
 def _run_targeted_inner(cfg: PipelineConfig, gaps_fa: str, remapped_paf: str,
-                        polished_gaps: str, mark, marks, t_start,
+                        polished_gaps: str, mark, t_start,
                         host_id: int = 0, n_hosts: int = 1) -> dict:
-    import time as _time
-
     from ..parallel import distributed as dist
     from . import bulk
 
@@ -382,10 +386,10 @@ def _run_targeted_inner(cfg: PipelineConfig, gaps_fa: str, remapped_paf: str,
 
     mark("post_processing")
     insert_polished_gaps(cfg.seqs_to_polish, polished_gaps, cfg.output_seqs)
-    mark("done")
+    mark(None)
     if cfg.benchmark:
         log.info(
-            "benchmark: targeted total %.2fs", _time.monotonic() - t_start
+            "benchmark: targeted total %.2fs", (trace.now() - t_start) / 1e9
         )
     log.info("targeted polishing done -> %s", cfg.output_seqs)
     return {"gaps": n_gaps}

@@ -59,6 +59,7 @@ import numpy as np
 
 from ..ops import nthash as nt
 from ..ops import siteeval
+from ..utils import trace
 from . import ntedit_oracle as orc
 from .ntedit_oracle import (
     MULTI_POSSIBLE_BASES,
@@ -665,10 +666,13 @@ class NtEditGPU:
         faster mode locks for the rest of the process — wall-clock of the
         real workload, not a microbenchmark proxy, decides.
         GPTPU_FORCE_DEVICE_SCAN=1 pins the device.
+
+        Each call is one edit.k span (utils/trace.py) with attrs k,
+        placement (where the dense scans ran: device or host) and locked
+        (the placement came from its class's A/B lock; False off the gate).
         """
         if self._scanner is not None or getattr(self, "_scanner_lazy", False):
             import os as _os
-            import time as _time
 
             total = sum(len(s) for s in seqs)
             key = (
@@ -696,14 +700,15 @@ class NtEditGPU:
                 mode = "host"
             else:
                 mode = "host"
-            t0 = _time.monotonic()
-            if mode == "device":
-                res = self._polish_many_pipelined(seqs, processes, shard_bases)
-            else:
-                res = self._polish_many_std(seqs, processes, shard_bases)
+            with trace.span("edit.k", k=self.cfg.k, placement=mode,
+                            locked=bool(ab["locked"])) as run:
+                if mode == "device":
+                    res = self._polish_many_pipelined(seqs, processes, shard_bases)
+                else:
+                    res = self._polish_many_std(seqs, processes, shard_bases)
             if total >= (3 << 17) and not ab["locked"]:
                 samples = ab[mode]
-                samples.append(total / max(_time.monotonic() - t0, 1e-9))
+                samples.append(total / max(run.seconds, 1e-9))
                 del samples[:-_AB_KEEP]
                 if (
                     len(ab["device"]) >= _AB_MIN_SAMPLES
@@ -717,7 +722,10 @@ class NtEditGPU:
                         else "host"
                     )
             return res
-        return self._polish_many_std(seqs, processes, shard_bases)
+        # off the gate: the jax backend probes and evaluates on the device
+        with trace.span("edit.k", k=self.cfg.k, locked=False,
+                        placement="device" if self._device_eval else "host"):
+            return self._polish_many_std(seqs, processes, shard_bases)
 
     def _polish_many_std(self, seqs: list[bytes], processes: int,
                          shard_bases: int):

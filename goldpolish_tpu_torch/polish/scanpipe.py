@@ -56,12 +56,13 @@ device scan.
 
 from __future__ import annotations
 
-import time
 from collections import deque
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+
+from ..utils import trace
 
 ROWS = 4
 ROW_WINDOWS = 1 << 19  # 512 K windows per row -> 2 M windows per call
@@ -167,14 +168,6 @@ class ScanPipe:
         self._codes: list = [None] * (self.depth + 2)
         self._packs: list = [None] * (self.depth + 2)
         self._outs: list = [[None] * self.n_shards for _ in range(self.depth + 2)]
-        # observability for adaptive placement: how often the consumer had
-        # to wait on the device vs found the result already materialized
-        self.waits = 0
-        self.calls = 0
-        self.wait_s = 0.0
-        # wait excluding the first call, which bears the kernel build and
-        # device warmup — the number adaptive placement should reason about
-        self.wait_steady_s = 0.0
 
     # -- planning ---------------------------------------------------------
     def _call_rows(self, call_idx: int) -> int:
@@ -278,7 +271,6 @@ class ScanPipe:
     def _dispatch(self, jobs, call: _Call, call_idx: int) -> _Pending:
         rows = self._call_rows(call_idx)
         total = self.scanner.padded_rows(rows)
-        self.calls += 1
         i = call_idx % len(self._codes)
         if not self._cuda:
             buf = torch.from_numpy(np.empty((total, self.row_bytes), np.uint8))
@@ -339,7 +331,6 @@ class ScanPipe:
         nw_row = self.row_windows
 
         def gen():
-            first_wait = True
             parts: dict[int, list[np.ndarray]] = {}
             tab_parts: dict[int, list[tuple]] = {}
             done: dict[int, np.ndarray] = {}
@@ -373,16 +364,10 @@ class ScanPipe:
             while inflight:
                 call, fut = inflight.popleft()
                 pump()  # keep the device queue full before blocking
-                t0 = time.perf_counter()
                 # blocks for THIS call's shards only
-                outs = merge_shards(fut.result(), nw_row)
-                dt = time.perf_counter() - t0
-                self.wait_s += dt
-                if not first_wait:
-                    self.wait_steady_s += dt
-                first_wait = False
-                if dt > 0.002:
-                    self.waits += 1
+                with trace.span("scan.wait"):
+                    shard_outs = fut.result()
+                outs = merge_shards(shard_outs, nw_row)
                 # copies only: the slot's pinned buffers are reused DEPTH+2
                 # calls on
                 bits = np.unpackbits(outs[0], axis=1, bitorder="little")

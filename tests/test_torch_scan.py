@@ -20,6 +20,7 @@ from goldpolish_tpu_torch.ops import bloom
 from goldpolish_tpu_torch.ops import nthash as nt
 from goldpolish_tpu_torch.ops import scan_conv as tsc
 from goldpolish_tpu_torch.polish.scanpipe import ScanPipe
+from goldpolish_tpu_torch.utils import trace
 
 # bytes whose ntHash forward seed the JAX one-hot drops (see
 # test_seeded_control_bytes_match_host_not_jax)
@@ -167,12 +168,31 @@ def test_scanpipe_stitches_like_a_whole_contig_scan():
     jobs = [(0, codes), (1, codes[:10]), (2, codes[100:2100]),
             (3, codes[:k]), (4, codes[50:4000])]
     got = dict(pipe.run(jobs))
-    assert pipe.calls > 3  # several calls, through the ramp-up
+    assert len(pipe._plan(jobs)) > 3  # several calls, through the ramp-up
     assert np.array_equal(got[0], want)
     assert got[1].size == 0
     assert np.array_equal(got[2], want[100 : 2100 - k + 1])
     assert np.array_equal(got[3], want[:1])
     assert np.array_equal(got[4], want[50 : 4000 - k + 1])
+
+
+def test_scanpipe_waits_are_spans():
+    """The consumer's wait on each call is one scan.wait span
+    (utils/trace.py); the pipe keeps no wait counters of its own."""
+    k, h = 32, 3
+    codes = _codes(5000, seed=12)
+    bf, want = _filter(codes, k, h, 1 << 16)
+    pipe = ScanPipe(tsc.DeviceScanner(bf, "cpu"), k, row_windows=700, rows=4, depth=2)
+    jobs = [(0, codes), (1, codes[200:3000])]
+    with trace.collect() as col:
+        got = dict(pipe.run(jobs))
+    waits = [s for s in col.export()["spans"] if s[0] == "scan.wait"]
+    assert len(waits) == len(pipe._plan(jobs)) > 3
+    assert all(t0 <= t1 for _n, t0, t1, _a in waits)
+    assert np.array_equal(got[0], want)
+    assert np.array_equal(got[1], want[200 : 3000 - k + 1])
+    for gone in ("waits", "calls", "wait_s", "wait_steady_s"):
+        assert not hasattr(pipe, gone)
 
 
 def test_cuda_device_raises_without_cuda():
@@ -235,7 +255,7 @@ def test_cuda_scanpipe_matches_plain_scans():
                     rows=4, depth=2)
     jobs = [(i, seq[i * 7000 : i * 7000 + 9000 + i]) for i in range(7)]
     got = dict(pipe.run(jobs))
-    assert pipe.calls > 2 * (pipe.depth + 2)  # every slot reused
+    assert len(pipe._plan(jobs)) > 2 * (pipe.depth + 2)  # every slot reused
     for i, codes in jobs:
         a = i * 7000
         assert np.array_equal(got[i], want[a : a + len(codes) - k + 1]), i

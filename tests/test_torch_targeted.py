@@ -197,6 +197,44 @@ def test_target_dev_keeps_intermediates(tmp_path):
     assert list(fasta.read_seqs(str(tmp_path / "out1.fa")))[0].seq == truth
 
 
+def test_targeted_stages_are_spans_and_keep_their_log_lines(tmp_path, caplog):
+    """Each stage is a target.<stage> span; --benchmark logs each stage's
+    seconds, as the span gives them, in the JAX package's words."""
+    import logging
+    import re
+
+    from goldpolish_tpu_torch.utils import trace
+
+    rng = np.random.default_rng(6)
+    truth = "".join(rng.choice(list("ACGT")) for _ in range(3000))
+    draft_path = str(tmp_path / "draft.fa")
+    fasta.write_fasta(draft_path, [fasta.SeqRecord(
+        "c1", "", truth[:1200] + truth[1200:1800].lower() + truth[1800:])])
+    reads_path, paf_path = str(tmp_path / "reads.fq"), str(tmp_path / "map.paf")
+    with open(reads_path, "w") as rf, open(paf_path, "w") as pf:
+        for rn, s in enumerate(range(0, 2500, 250)):
+            rf.write(f"@r{rn}\n{truth[s:s + 500]}\n+\n{'I' * 500}\n")
+            pf.write(f"r{rn}\t500\t0\t500\t+\tc1\t3000\t{s}\t{s + 500}\t500\t500\t60\n")
+    stages = ["extract_seq", "map", "update_mapping_paf", "run_goldpolish",
+              "post_processing"]
+    with caplog.at_level(logging.INFO, logger="goldpolish_tpu_torch"), \
+            trace.collect() as col:
+        targeted.run_targeted(PipelineConfig(
+            seqs_to_polish=draft_path, polishing_seqs=reads_path,
+            output_seqs=str(tmp_path / "out.fa"), k_values=[32], mappings_path=paf_path,
+            target=True, flank_length=64, workspace=str(tmp_path), benchmark=True,
+            device="cpu"))
+    spans = {s[0]: s for s in col.export()["spans"] if s[0].startswith("target.")}
+    assert list(spans) == [f"target.{st}" for st in stages]
+    lines = [r.getMessage() for r in caplog.records if r.getMessage().startswith("benchmark:")]
+    assert [ln.split()[1] for ln in lines] == stages + ["targeted"]
+    for st, line in zip(stages, lines):
+        _n, t0, t1, _a = spans[f"target.{st}"]
+        assert line == f"benchmark: {st} {(t1 - t0) / 1e9:.2f}s"
+    assert re.fullmatch(r"benchmark: targeted total \d+\.\d\ds", lines[-1])
+    assert "bulk.run" in {s[0] for s in col.export()["spans"]}
+
+
 def test_targeted_refuses_cuda_without_cuda_before_writing(tmp_path):
     """The port's startup check runs before extraction: the default device
     (cuda) without CUDA raises and leaves no intermediate behind."""
