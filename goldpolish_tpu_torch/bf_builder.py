@@ -29,7 +29,9 @@ fill when the device fill fails: here a device failure raises.
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -88,6 +90,8 @@ class BFBuilder:
         self.bf_bytes = bf_bytes
         self.subsample = subsample_max_mapped_seqs_per_target_10kbp
         self.autoscale_bf = autoscale_bf
+        self._filling = 0
+        self._filling_lock = threading.Lock()
         self._fill = None
         self._fill_stream = None
         if use_native:
@@ -101,6 +105,20 @@ class BFBuilder:
                 self._fill = None
         if self._fill is None:
             self._fill = bloom.fill_bfs
+
+    @contextlib.contextmanager
+    def filling(self):
+        """Marks a batch fill of this builder's as running for the block;
+        yields how many are running, this one included (the fills of
+        several batches may run at once on several threads)."""
+        with self._filling_lock:
+            self._filling += 1
+            running = self._filling
+        try:
+            yield running
+        finally:
+            with self._filling_lock:
+                self._filling -= 1
 
     def build_batch(self, target_ids: list[str]) -> BatchBFs:
         """serve_batch semantics (reference goldpolish_targeted_bfs.cpp:55-146).

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import os
 import socket
+import threading
 from typing import Iterator
 
 
@@ -28,6 +29,7 @@ class SeqIndex:
         # id -> (seq_start, seq_len, phred_avg); dict preserves insert order
         self._records: dict[str, tuple[int, int, float]] = {}
         self._fh = None
+        self._fh_lock = threading.Lock()
 
     # -- construction ---------------------------------------------------------
     @classmethod
@@ -128,19 +130,26 @@ class SeqIndex:
     # -- queries (reference: seqindex.hpp:59-102) -----------------------------
     def get_seq(self, rid: str) -> bytes:
         start, length, _ = self._records[rid]
-        if self._fh is None:
-            self._fh = open(self.seqs_filepath, "rb")
+        fh = self._fh or self._handle(None)
         # pread: offset-explicit and atomic, so concurrent batch workers
         # (threads sharing this handle, or fork-pool children sharing the
         # file description and therefore its offset) cannot interleave a
         # seek with another worker's read.
         try:
-            return os.pread(self._fh.fileno(), length, start)
+            return os.pread(fh.fileno(), length, start)
         except OSError:
             # a stale handle (e.g. inherited across an exec/fork boundary
             # that closed it) is recoverable: reopen once and retry
-            self._fh = open(self.seqs_filepath, "rb")
-            return os.pread(self._fh.fileno(), length, start)
+            return os.pread(self._handle(fh).fileno(), length, start)
+
+    def _handle(self, stale):
+        """The open handle, opened anew where there is none or it is
+        `stale`: under a lock, so the threads that fill several batches at
+        once open one handle between them."""
+        with self._fh_lock:
+            if self._fh is None or self._fh is stale:
+                self._fh = open(self.seqs_filepath, "rb")
+            return self._fh
 
     def get_seq_len(self, rid: str) -> int:
         return self._records[rid][1]

@@ -30,6 +30,7 @@ from __future__ import annotations
 import datetime
 import os
 import shutil
+import socket
 import time
 
 from ..utils.log import get_logger
@@ -151,6 +152,29 @@ def on_host_0(fn):
     if failure is not None:
         raise failure
     return result
+
+
+def ranks_on_these_cores(cpus) -> int:
+    """How many of the group's ranks, this one included, run on this
+    machine with the same set of cores `cpus` (their affinity masks); 1
+    outside a group.  The machine is told by its kernel's boot id, which
+    the containers on one machine share, else by its host name.  Ranks on
+    one machine with masks that differ count apart, even where the masks
+    overlap.  A collective: every rank of the group calls it at one point."""
+    _host_id, n_hosts = group_rank()
+    if n_hosts == 1:
+        return 1
+    import torch.distributed as tdist
+
+    try:
+        with open("/proc/sys/kernel/random/boot_id") as f:
+            machine = f.read().strip()
+    except OSError:
+        machine = socket.gethostname()
+    key = (machine, tuple(sorted(cpus)))
+    keys: list = [None] * n_hosts
+    tdist.all_gather_object(keys, key)
+    return keys.count(key)
 
 
 def shutdown_distributed() -> None:

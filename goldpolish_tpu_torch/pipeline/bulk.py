@@ -224,6 +224,38 @@ def build_batch_bfs(builder: BFBuilder, cfg: PipelineConfig, ids: list[str]):
     return builder.build_batch(ids)
 
 
+def usable_cores() -> int:
+    """The host cores this process may run on (its affinity mask; the
+    machine's count where the platform has no such call), shared evenly
+    with the ranks of its group that run on the same machine and the same
+    cores.  A collective in a group: every rank calls it at one point."""
+    try:
+        cpus = os.sched_getaffinity(0)
+    except AttributeError:
+        cpus = range(os.cpu_count() or 1)
+    return max(1, len(cpus) // dist.ranks_on_these_cores(cpus))
+
+
+def fill_workers(cores: int, n_k: int, batches, done=frozenset()) -> int:
+    """How many batches the lookahead fills at once: one native stream fill
+    runs one thread per k, and fills are started until their threads
+    number 1.5 times the cores (on an 8-core H100 host at 4 k's, 3 fills
+    at once beat 2 and 4: PERF.md §6); never more than the batches not
+    already done (`done`: the checkpoint's), and at least one.  Fills of different batches share no state, so their
+    filters are the same at any count."""
+    live = sum(1 for index in batches if index not in done)
+    return max(1, min(live, 3 * cores // (2 * max(1, n_k))))
+
+
+@contextlib.contextmanager
+def _fill_span(builder: BFBuilder, where: str):
+    """A batch fill's fill.build span; its inflight attribute counts the
+    builder's fills running as it starts, itself included."""
+    with builder.filling() as inflight, trace.span(
+            "fill.build", where=where, inflight=inflight) as fill:
+        yield fill
+
+
 def _batch_tags(batch: engine.Batch) -> dict:
     """The attributes of a batch's spans: its index and draft bases."""
     return {"batch": batch.index, "bases": sum(len(s) for _h, s in batch.records)}
@@ -239,7 +271,7 @@ def polish_batch_records(records, builder: BFBuilder, cfg: PipelineConfig,
                          batch_bfs=None) -> BatchResult:
     """One batch through the full chain (ntedit -> mask -> sealer -> upper).
 
-    batch_bfs: prefilled filters from the lookahead fill thread (the
+    batch_bfs: prefilled filters from the lookahead's fill pool (the
     reference's BF-builder-server concurrency, goldpolish_targeted_bfs.cpp
     :177-238 — batch N+1's filters build while batch N polishes); None
     builds inline.
@@ -253,8 +285,7 @@ def polish_batch_records(records, builder: BFBuilder, cfg: PipelineConfig,
     timing: dict = {"bf_build_s": 0.0}
     if batch_bfs is None:
         # filled inline: the batch waits from here to its filters in hand
-        with trace.span("fill.build",
-                        where="device" if _device_fill(cfg) else "host") as fill:
+        with _fill_span(builder, "device" if _device_fill(cfg) else "host") as fill:
             batch_bfs = build_batch_bfs(builder, cfg, ids)
         trace.record("fill.wait", held, fill.t1)
         timing["bf_build_s"] = round(fill.seconds, 3)
@@ -364,7 +395,9 @@ def run_bulk(cfg: PipelineConfig) -> dict:
     come back as totals["trace"]; totals["timing"] holds their durations:
     wall_s is bulk.run's (the run after its startup checks), setup_s
     bulk.setup's, the other keys the sums over batches of each batch's
-    stats["timing"].
+    stats["timing"].  totals["fill_workers"] (also bulk.run's attribute):
+    the batches the lookahead fills at once, 0 where each batch fills
+    inline (no lookahead, one batch of this host's, or the process pool).
     """
     check_ported(cfg)
     # static config error, not a per-batch condition: fail at startup
@@ -382,6 +415,7 @@ def run_bulk(cfg: PipelineConfig) -> dict:
     with trace.collect() as col:
         with trace.span("bulk.run") as run:
             totals = _run_bulk(cfg)
+            run.attrs["fill_workers"] = totals["fill_workers"]
     timing = totals["timing"] = {"wall_s": round(run.seconds, 3), **totals["timing"]}
     totals["trace"] = col.export()
     totals["kernel_launches"] = kernel_launches()
@@ -418,6 +452,7 @@ def _run_bulk(cfg: PipelineConfig) -> dict:
             # the caller that joined it
             own_group = not dist.in_group()
             host_id, n_hosts = dist.init_distributed()
+            cores = usable_cores()
             builder = make_builder(cfg, ws.dir)
             records = ((r.name, r.seq) for r in fasta.read_seqs(cfg.seqs_to_polish))
             all_batches = list(engine.make_batches(records, cfg.batch_size))
@@ -433,7 +468,8 @@ def _run_bulk(cfg: PipelineConfig) -> dict:
             if ckpt_dir:
                 os.makedirs(ckpt_dir, exist_ok=True)
             totals = {"batches": len(all_batches), "contigs": 0, "bases_out": 0,
-                      "resumed_batches": 0, "device_filled_batches": 0}
+                      "resumed_batches": 0, "device_filled_batches": 0,
+                      "fill_workers": 0}
         timing_sum: dict = {}
         my_batches = [
             b for b in all_batches
@@ -468,15 +504,20 @@ def _run_bulk(cfg: PipelineConfig) -> dict:
                 )
         elif cfg.lookahead_fill and len(my_batches) > 1:
             # lookahead Bloom fill (reference BF-server concurrency,
-            # goldpolish_targeted_bfs.cpp:177-238): a dedicated thread fills
-            # batch N+1's filters while batch N polishes, so the fill never
-            # sits serially at the head of a batch.  One thread — the native
-            # fill releases the GIL and parallelizes over k internally.
+            # goldpolish_targeted_bfs.cpp:177-238): a pool of fill threads
+            # fills batch N+1's filters while batch N polishes, so the fill
+            # never sits serially at the head of a batch.  The native fill
+            # releases the GIL and runs a thread per k, so the pool fills
+            # as many batches at once as the cores hold (fill_workers), as
+            # the reference runs an OpenMP task per batch (:177-192)
             import concurrent.futures as _cf
             import threading as _threading
 
+            totals["fill_workers"] = fill_workers(
+                cores, len(cfg.k_values), [b.index for b in my_batches],
+                manifest.done)
             fill_exec = _cf.ThreadPoolExecutor(
-                max_workers=1, thread_name_prefix="bf-fill"
+                max_workers=totals["fill_workers"], thread_name_prefix="bf-fill"
             )
             fill_futs: dict = {}
             fill_started: set = set()
@@ -486,11 +527,11 @@ def _run_bulk(cfg: PipelineConfig) -> dict:
 
             def _timed_fill(batch, queued=None, where=None):
                 """The batch's filters and their fill's seconds; `queued`:
-                when it was handed to the fill thread (trace.now())."""
+                when it was handed to the fill pool (trace.now())."""
                 with trace.tags(**_batch_tags(batch)):
                     if queued is not None:
                         trace.record("fill.queued", queued, trace.now())
-                    with trace.span("fill.build", where=where or (
+                    with _fill_span(builder, where or (
                             "device" if _device_fill(cfg) else "host")) as fill:
                         bfs = build_batch_bfs(
                             builder, cfg, [h.split()[0] for h, _ in batch.records])
@@ -556,8 +597,8 @@ def _run_bulk(cfg: PipelineConfig) -> dict:
                             # everything between claim and fill sits inside
                             # this try: a claimed-but-unresolved future
                             # blocks its consumer forever
-                            with trace.tags(**_batch_tags(b)), trace.span(
-                                    "fill.build", where="device") as fill:
+                            with trace.tags(**_batch_tags(b)), _fill_span(
+                                    builder, "device") as fill:
                                 ids = [h.split()[0] for h, _ in b.records]
                                 bfs = builder.build_batch_device(ids, device=cfg.device)
                         except Exception as e:  # noqa: BLE001 — to the consumer

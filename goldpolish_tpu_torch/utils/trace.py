@@ -131,16 +131,29 @@ class span:
 
 def summary(spans) -> str:
     """Per span name its count, sum and max in seconds; per k the batches
-    whose edit ran its scan on the device and on the host."""
+    whose edit ran its scan on the device and on the host; per run its
+    fill workers (bulk.run's fill_workers), and the fills that started
+    while another ran (fill.build's inflight of 2 or more)."""
     by_name: dict[str, list[float]] = {}
     placed: dict[int, dict[str, int]] = {}
+    workers: list[int] = []
+    fills = beside = 0
     for name, t0, t1, attrs in spans:
         by_name.setdefault(name, []).append((t1 - t0) / 1e9)
         if name == "edit.k":
             per_k = placed.setdefault(attrs["k"], {"device": 0, "host": 0})
             per_k[attrs["placement"]] += 1
+        elif name == "bulk.run" and "fill_workers" in attrs:
+            workers.append(attrs["fill_workers"])
+        elif name == "fill.build" and "inflight" in attrs:
+            fills += 1
+            beside += attrs["inflight"] >= 2
     parts = [f"{n} n={len(d)} sum={sum(d):.3f}s max={max(d):.3f}s"
              for n, d in sorted(by_name.items())]
     where = [f"k={k} device={p['device']} host={p['host']}"
              for k, p in sorted(placed.items(), reverse=True)]
-    return "; ".join(parts) + (" | placement " + "; ".join(where) if where else "")
+    line = "; ".join(parts) + (" | placement " + "; ".join(where) if where else "")
+    if workers:
+        line += (f" | fill workers={','.join(map(str, workers))}"
+                 f" overlapped={beside} of {fills}")
+    return line

@@ -193,6 +193,41 @@ def test_on_host_0_result_and_failure_reach_every_host():
         "RuntimeError host 0 failed: ValueError('boom')", "calls []"]
 
 
+_CORES = """
+import sys
+sys.path.insert(0, {repo!r})
+from goldpolish_tpu_torch.parallel import distributed as dist
+
+host_id, _n = dist.init_distributed()
+print(dist.ranks_on_these_cores({{0, 1}}), dist.ranks_on_these_cores({{host_id}}))
+dist.shutdown_distributed()
+"""
+
+
+def test_ranks_on_these_cores():
+    """Outside a group, 1.  Two ranks on one machine: 2 on the same cores,
+    1 each on cores of their own."""
+    import socket
+    import subprocess
+    import sys
+
+    assert dist.ranks_on_these_cores({0, 1}) == 1
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, "JAX_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+               "JAX_NUM_PROCESSES": "2", "JAX_PROCESS_ID": str(rank)}
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _CORES.format(repo=repo)], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [e[-2000:] for _o, e in outs]
+    assert [o.split() for o, _e in outs] == [["2", "1"], ["2", "1"]]
+
+
 _INDEX_LOOP = """
 import sys
 sys.path.insert(0, {repo!r})

@@ -61,9 +61,9 @@ def _rounded(span) -> float:
 
 
 def test_bulk_spans_per_batch_lookahead(tmp_path, monkeypatch):
-    """Lookahead fill, 4 batches, 4 slots, one fill thread: every batch's
-    spans once each and in order, fill.queued > 0, and every timing key the
-    rounded duration of its span; the output is the JAX package's."""
+    """Lookahead fill, 4 batches, 4 slots: every batch's spans once each
+    and in order, fill.queued > 0, and every timing key the rounded
+    duration of its span; the output is the JAX package's."""
     from goldpolish_tpu.config import PipelineConfig as JaxConfig
     from goldpolish_tpu.pipeline import bulk as jax_bulk
 
@@ -212,6 +212,16 @@ def test_summary_line():
         "edit.k n=3 sum=0.004s max=0.002s; seal n=1 sum=0.003s max=0.003s"
         " | placement k=32 device=1 host=1; k=28 device=0 host=1")
     assert trace.summary([]) == ""
+
+
+def test_summary_line_fill_workers():
+    """Per run its fill workers; the fills that started beside another."""
+    spans = [("bulk.run", 0, 1_000_000, {"fill_workers": 2}),
+             ("fill.build", 0, 1_000_000, {"where": "host", "inflight": 1}),
+             ("fill.build", 0, 1_000_000, {"where": "host", "inflight": 2})]
+    assert trace.summary(spans) == (
+        "bulk.run n=1 sum=0.001s max=0.001s; fill.build n=2 sum=0.002s max=0.001s"
+        " | fill workers=2 overlapped=1 of 2")
 
 
 @pytest.mark.cuda
