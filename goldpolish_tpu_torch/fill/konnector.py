@@ -19,6 +19,13 @@ Graph/ConstrainedBidiBFSVisitor.h):
    consensus (fill/nw.py) for multiple paths,
  * flank overlay + mismatch count (maskNew semantics).
 
+On the plain DBG at k <= 32 (fix_errors off) a round's anchor choice,
+searches and path enumeration run in one native call outside the
+interpreter lock (_native_round, native/gp_native.cpp gp_konnect_pairs),
+a C port of get_start_kmer_pos, _prepare_search, _BidiSearch and
+paths_to_goal on packed vertices, step for step; the merge stays here.
+The Python search is its plain version and takes every other case.
+
 Vertices are 2-bit PACKED k-mers (Python ints, ops/kmers — the reference's
 packed Kmer, Common/Kmer.h:58-144) whenever the anchors are pure ACGT and
 the graph is the host probing DBG or the device-mask replay: BFS state,
@@ -34,7 +41,8 @@ change: DeviceDBG (:233-315, K8) probes a lockstep round's frontier with
 the chain-walking extension probe of ops/dbg_extend.py (kernel 7 on CUDA,
 its plain torch version on the CPU) on `device`, without the JAX call's
 shape bucket and host-built [rows, 4, k] extension rows, and caches every
-vertex of each unbranched chain it walked.  The lockstep hooks it drives
+vertex of each unbranched chain it walked; and the native round above,
+which the JAX package lacks.  The lockstep hooks it drives
 (_BidiSearch.run_while_cached / frontier / prefetch, connect_pairs_batch)
 are the JAX package's; on the probing DBG they reduce to the serial loop.
 The other device arm is connect_pairs_batch_masks with
@@ -836,25 +844,32 @@ def _finish_search(dbg: DBG, res: SearchResult, search, read1: str,
                    read2: str,
                    params: "ConnectPairsParams | None" = None) -> SearchResult:
     """Path enumeration + consensus (the back half of connect_pairs).
-    `search` is a completed _BidiSearch, or None for the decided cases.
-    mask_new always compares against the ORIGINAL reads; anchors/merging use
-    the (possibly fixErrors-corrected) res.read1/read2."""
-    from . import nw
-
+    `search` is a completed _BidiSearch, or None for the decided cases."""
     k = dbg.k
-    r1 = res.read1 if res.read1 is not None else read1
-    r2 = res.read2 if res.read2 is not None else read2
     if search is not None:
         res.cost = search.cost
         res.num_nodes_visited = search.nodes_visited
         res.max_active_branches = search.peak_branches
         res.path_result, paths = search.paths_to_goal()
     elif res.path_result == "FOUND_PATH":
+        r1 = res.read1 if res.read1 is not None else read1
         paths = [[r1[res.start_kmer_pos : res.start_kmer_pos + k]]]
     if res.path_result != "FOUND_PATH":
         return res
+    return _merge_paths(res, [path_to_seq(p, k) for p in paths], read1, read2,
+                        params)
 
-    connecting = [path_to_seq(p, k) for p in paths]
+
+def _merge_paths(res: SearchResult, connecting: list[str], read1: str,
+                 read2: str, params: "ConnectPairsParams | None") -> SearchResult:
+    """Merge a found result's connecting sequences with the flanks: the one
+    path, or the NW consensus of several.  mask_new always compares against
+    the ORIGINAL reads; anchors/merging use the (possibly
+    fixErrors-corrected) res.read1/read2."""
+    from . import nw
+
+    r1 = res.read1 if res.read1 is not None else read1
+    r2 = res.read2 if res.read2 is not None else read2
     if params is not None and params.preserve_reads:
         # keep the original read bytes verbatim: the connecting path must
         # extend past both reads, else the merge cannot preserve them
@@ -888,13 +903,50 @@ def _finish_search(dbg: DBG, res: SearchResult, search, read1: str,
     return res
 
 
+# gp_konnect_pairs' result codes and row kinds (native/gp_native.cpp)
+_NATIVE_CODES = ("NO_PATH", "FOUND_PATH", "TOO_MANY_PATHS", "TOO_MANY_BRANCHES",
+                 "MAX_COST_EXCEEDED", "EXCEEDED_MEM_LIMIT")
+_ANCHORED, _FALLBACK = 1, 2  # kind 0: no anchors, the default SearchResult
+
+
+def _native_round(dbg: DBG, pairs: list[tuple[str, str]],
+                  params: ConnectPairsParams) -> list[SearchResult | None] | None:
+    """The pairs' results from the native search (native.konnect_pairs: the
+    anchor choice, the search and the path enumeration in one call outside
+    the interpreter lock; the merge here), None for a pair whose anchors do
+    not pack, which the Python search then takes.  None where it does not
+    engage: a graph other than the plain DBG, k > 32, no native library,
+    fix_errors, or reads that are not ASCII."""
+    if (type(dbg) is not DBG or dbg._ext4 is None or dbg.k > 32
+            or params.fix_errors):
+        return None
+    from .. import native
+
+    try:
+        rows = native.konnect_pairs(pairs, dbg.k, dbg.h, dbg.bf, params)
+    except UnicodeEncodeError:
+        return None
+    out: list[SearchResult | None] = []
+    for (r1, r2), (kind, code, sp, gp, cost, nodes, peak, connecting) in zip(pairs, rows):
+        if kind == _FALLBACK:
+            out.append(None)
+            continue
+        res = SearchResult()
+        if kind == _ANCHORED:
+            res.found_start = res.found_goal = True
+            res.start_kmer_pos, res.goal_kmer_pos = sp, gp
+            res.cost, res.num_nodes_visited, res.max_active_branches = cost, nodes, peak
+            res.path_result = _NATIVE_CODES[code]
+            if res.path_result == "FOUND_PATH":
+                res = _merge_paths(res, connecting, r1, r2, params)
+        out.append(res)
+    return out
+
+
 def connect_pairs(dbg: DBG, read1: str, read2: str, params: ConnectPairsParams) -> SearchResult:
     """reference konnector.h:234-438 (fixErrors/preserveReads both false in
-    the sealer pipeline)."""
-    res, search = _prepare_search(dbg, read1, read2, params)
-    if search is not None:
-        search.run()
-    return _finish_search(dbg, res, search, read1, read2, params)
+    the sealer pipeline): connect_pairs_batch of one pair."""
+    return connect_pairs_batch(dbg, [(read1, read2)], params)[0]
 
 
 class MaskDBG:
@@ -976,16 +1028,24 @@ def connect_pairs_batch_masks(dbg: DBG, pairs: list[tuple[str, str]],
 
 
 def connect_pairs_batch(dbg: DBG, pairs: list[tuple[str, str]],
-                        params: ConnectPairsParams) -> list[SearchResult]:
-    """connect_pairs over many gaps with LOCKSTEP searches: every active
-    search advances until it needs uncached probes, then one DeviceDBG
-    prefetch covers the union of all frontiers — the cross-gap batching
-    SURVEY §7.5 prescribes.  Each search's processing order is untouched,
-    so per-gap results are identical to serial connect_pairs (pinned by
-    tests).  With a host DBG every search completes on its first
-    run_while_cached call and this degenerates to the serial loop."""
-    prepared = [_prepare_search(dbg, r1, r2, params) for r1, r2 in pairs]
-    active = [(i, s) for i, (_res, s) in enumerate(prepared) if s is not None]
+                        params: ConnectPairsParams,
+                        tally: dict | None = None) -> list[SearchResult]:
+    """connect_pairs over many gaps.  On the plain DBG the native round
+    (_native_round) takes every pair it can; the rest run the Python
+    searches in LOCKSTEP: every active search advances until it needs
+    uncached probes, then one DeviceDBG prefetch covers the union of all
+    frontiers — the cross-gap batching SURVEY §7.5 prescribes.  Each
+    search's processing order is untouched, so per-gap results are
+    identical to serial connect_pairs (pinned by tests).  With a host DBG
+    every search completes on its first run_while_cached call and this
+    degenerates to the serial loop.  tally["native"] gains the pairs the
+    native round took."""
+    done = _native_round(dbg, pairs, params) or [None] * len(pairs)
+    if tally is not None:
+        tally["native"] = tally.get("native", 0) + sum(r is not None for r in done)
+    prepared = {i: _prepare_search(dbg, *pairs[i], params)
+                for i, r in enumerate(done) if r is None}
+    active = [(i, s) for i, (_res, s) in prepared.items() if s is not None]
     prefetch = getattr(dbg, "prefetch", None)
     while active:
         if prefetch is not None:
@@ -997,7 +1057,6 @@ def connect_pairs_batch(dbg: DBG, pairs: list[tuple[str, str]],
                 want_p += fp
             prefetch(want_s, want_p)
         active = [(i, s) for i, s in active if not s.run_while_cached()]
-    return [
-        _finish_search(dbg, res, s, pairs[i][0], pairs[i][1], params)
-        for i, (res, s) in enumerate(prepared)
-    ]
+    for i, (res, s) in prepared.items():
+        done[i] = _finish_search(dbg, res, s, pairs[i][0], pairs[i][1], params)
+    return done

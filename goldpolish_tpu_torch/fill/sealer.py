@@ -22,10 +22,11 @@ subprojects/sealer/sealer.cpp) as used by the pipeline
 Byte-format quirk preserved: the reference always writes
 ">id<space>comment" even when the comment is empty.
 
-Port counterpart: goldpolish_tpu/fill/sealer.py, copied with one change
+Port counterpart: goldpolish_tpu/fill/sealer.py, copied with two changes
 in seal_records: `device` picks where the device arms run, the hybrid
 arm's DeviceBFS and the jax arm's DeviceDBG ("cuda", or "cpu" for the
-plain torch versions in tests).
+plain torch versions in tests), and `tally` counts the searches and those
+the native round took (the `seal` span's attributes).
 """
 
 from __future__ import annotations
@@ -146,7 +147,7 @@ def _classify(res) -> str:
 
 def seal_records(records, bfs_by_k: dict[int, object], cfg: SealerConfig,
                  trace_out: list | None = None, backend: str = "numpy",
-                 device: str = "cuda"):
+                 device: str = "cuda", tally: dict | None = None):
     """Gap-fill a batch of (header, seq) records.
 
     bfs_by_k: {k: host BloomFilter}.  Returns (records_out, stats) where
@@ -160,6 +161,10 @@ def seal_records(records, bfs_by_k: dict[int, object], cfg: SealerConfig,
     (up to ops/dbg_extend.CHAIN_STEPS levels).  Outcomes of both are
     identical to the host DBG (membership is a pure function of the Bloom
     filter).
+
+    tally, if given, gets "searches" (the pairs of every k round's work
+    list) and "native" (those the native round took, konnector
+    _native_round: the host DBG at k <= 32).
     """
     # collect flanks across all records, keyed like the reference's
     # map<FastaRecord(left), map<FastaRecord(right), Gap>> — outer key is
@@ -176,6 +181,7 @@ def seal_records(records, bfs_by_k: dict[int, object], cfg: SealerConfig,
 
     all_merged: dict[str, dict[int, tuple[Gap, str]]] = {}
     stats = {"gaps_found": gaps_found, "gaps_closed": 0}
+    counts = {"searches": 0, "native": 0}
     for k in cfg.k_values:
         bf = bfs_by_k[k]
         device_bfs = None
@@ -211,6 +217,7 @@ def seal_records(records, bfs_by_k: dict[int, object], cfg: SealerConfig,
             for key1 in sorted(flanks)
             for key2 in sorted(flanks[key1])
         ]
+        counts["searches"] += len(work)
         if device_bfs is not None:
             from .konnector import connect_pairs_batch_masks
 
@@ -219,7 +226,7 @@ def seal_records(records, bfs_by_k: dict[int, object], cfg: SealerConfig,
             )
         else:
             results = connect_pairs_batch(
-                dbg, [(k1[1], k2[1]) for k1, k2 in work], params
+                dbg, [(k1[1], k2[1]) for k1, k2 in work], params, tally=counts
             )
         res_by_keys = {keys: r for keys, r in zip(work, results)}
         for key1 in sorted(flanks):
@@ -266,6 +273,8 @@ def seal_records(records, bfs_by_k: dict[int, object], cfg: SealerConfig,
         stats[k] = counters
         if cfg.verbose:
             log.info("k=%d: %s; %d flanks left", k, counters, len(flanks))
+    if tally is not None:
+        tally.update(counts)
 
     # splice (reference insertIntoScaffold :525-558)
     out = []

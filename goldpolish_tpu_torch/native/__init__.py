@@ -5,8 +5,9 @@ Falls back gracefully: callers should catch NativeUnavailable and use the
 NumPy paths in ops/.
 
 Port counterpart: goldpolish_tpu/native/__init__.py, copied with the
-imports renamed, and `extend4` raising where gp_extend4 refuses its
-arguments (the host DBG then takes its Python path).  The .so is built
+imports renamed, `extend4` raising where gp_extend4 refuses its
+arguments (the host DBG then takes its Python path), and `konnect_pairs`,
+the sealer's host search for one k round, which the JAX package lacks.  The .so is built
 into this package's own native/ directory (the reference caches its build
 next to its own source), through a per-process temp name so parallel test
 workers cannot interleave writes.
@@ -88,6 +89,13 @@ def lib():
         ]
         L.gp_seqindex_build.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
         L.gp_seqindex_build.restype = ctypes.c_int
+        i64p = ctypes.POINTER(ctypes.c_int64)
+        L.gp_konnect_pairs.argtypes = [
+            u8p, i64p, ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32,
+            ctypes.c_uint32, u8p, ctypes.c_uint64, i64p, i64p,
+            u8p, ctypes.c_int64, i64p, ctypes.c_int64, i64p,
+        ]
+        L.gp_konnect_pairs.restype = ctypes.c_int64
         _LIB = L
         return L
 
@@ -261,6 +269,55 @@ def bind_extend4p():
         L.gp_extend4p.restype = ctypes.c_int32
         L.gp_extend4p_configured = True
     return L.gp_extend4p
+
+
+def konnect_pairs(pairs: list[tuple[str, str]], k: int, hash_num: int, bf,
+                  params) -> list[tuple]:
+    """One k round of the sealer's searches in one native call
+    (gp_konnect_pairs), which runs without the interpreter lock: per pair
+    (kind, code, start_pos, goal_pos, cost, nodes_visited, peak_branches,
+    connecting sequences), with kind and code as gp_konnect_pairs numbers
+    them (fill/konnector.py reads them).  params: a ConnectPairsParams
+    (fix_errors is the caller's to refuse).  Reads must be ASCII."""
+    L = lib()
+    n = len(pairs)
+    seqs_in = [s.encode("ascii") for pair in pairs for s in pair]
+    offs = np.zeros(2 * n + 1, np.int64)
+    np.cumsum([len(s) for s in seqs_in], out=offs[1:])
+    reads = np.frombuffer(b"".join(seqs_in) or b"\0", np.uint8)
+    prm = np.array([params.min_merged_seq_len, params.max_merged_seq_len,
+                    params.max_paths, params.max_branches, params.max_cost,
+                    params.mem_limit, int(params.preserve_reads)], np.int64)
+    res = np.zeros((n, 8), np.int64)
+    used = np.zeros(4, np.int64)
+    seq_cap, len_cap = 1 << 16, 1 << 10
+    i64 = ctypes.POINTER(ctypes.c_int64)
+    out = []
+    i = 0
+    while i < n:
+        seqs = np.empty(seq_cap, np.uint8)
+        lens = np.empty(len_cap, np.int64)
+        j = L.gp_konnect_pairs(
+            _u8ptr(reads), offs.ctypes.data_as(i64), n, i, k, hash_num,
+            _u8ptr(bf.array), bf.bytes, prm.ctypes.data_as(i64),
+            res.ctypes.data_as(i64), _u8ptr(seqs), seq_cap,
+            lens.ctypes.data_as(i64), len_cap, used.ctypes.data_as(i64),
+        )
+        if j < 0:
+            raise ValueError(f"gp_konnect_pairs takes 2 <= k <= 32 and "
+                             f"1 <= hash_num <= 16, got k={k} hash_num={hash_num}")
+        raw = seqs[: used[0]].tobytes().decode("ascii")
+        ends = np.cumsum(lens[: used[1]]).tolist()
+        p = 0
+        for row in res[i:j].tolist():
+            got = [raw[ends[q - 1] if q else 0 : ends[q]] for q in range(p, p + row[7])]
+            p += row[7]
+            out.append((*row[:7], got))
+        if j < n:  # pair j's paths did not fit: room for them, and more
+            seq_cap = max(2 * seq_cap, int(used[2]))
+            len_cap = max(2 * len_cap, int(used[3]))
+        i = j
+    return out
 
 
 def sketch(seq_codes: np.ndarray, k: int, w: int):

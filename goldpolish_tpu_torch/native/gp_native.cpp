@@ -1,5 +1,7 @@
 // Port counterpart: goldpolish_tpu/native/gp_native.cpp, copied unchanged
-// but for gp_pack2, which writes whole packed bytes (no zeroed output).
+// but for gp_pack2, which writes whole packed bytes (no zeroed output), and
+// gp_konnect_pairs (the sealer's host search for one k round), which the
+// JAX package lacks.
 // gp_native — native host kernels for goldpolish_tpu_torch.
 //
 // The reference keeps its data-plane hot loops native (SeqIndex scan:
@@ -24,7 +26,11 @@
 #include <cstdlib>
 #include <cstdio>
 #include <cstring>
+#include <deque>
 #include <string>
+#include <unordered_map>
+#include <unordered_set>
+#include <utility>
 #include <vector>
 
 #ifdef _OPENMP
@@ -2219,6 +2225,479 @@ int32_t gp_extend4p(uint64_t kmer, uint32_t k, uint32_t hash_num,
   for (uint32_t i = 0; i < k; i++)
     buf[i] = BASES[(kmer >> (2 * (k - 1 - i))) & 3];
   return gp_extend4(buf, k, hash_num, bf, bf_bytes, forward);
+}
+
+}  // extern "C"
+
+// ===========================================================================
+// The sealer's host search for one k round (gp_konnect_pairs): a C port of
+// fill/konnector.py's get_start_kmer_pos, _prepare_search, _BidiSearch and
+// paths_to_goal on 2-bit packed vertices (first base in the high bits,
+// A=0 C=1 G=2 T=3, k <= 32).  Every map, list and counter below mirrors its
+// Python twin by name and is updated in the same order, so results, costs,
+// abort points and path order are the Python search's (pinned by
+// tests/test_torch_konnector_native.py).  No static state: rounds of
+// several batches may run at once on separate threads.
+// ===========================================================================
+
+namespace {
+
+constexpr int64_t KN_NO_LIMIT = 0xFFFFFFFFLL;  // konnector.NO_LIMIT
+constexpr int64_t KN_MEM_COUNTER_ROLLOVER = 1000;
+// result codes, in the order of konnector._NATIVE_CODES
+enum { KN_NO_PATH, KN_FOUND_PATH, KN_TOO_MANY_PATHS, KN_TOO_MANY_BRANCHES,
+       KN_MAX_COST_EXCEEDED, KN_EXCEEDED_MEM_LIMIT };
+// what a pair's row holds: no anchors (a flank shorter than k or a missing
+// anchor: the default SearchResult), anchored (searched, or identical
+// anchors), or left to the Python search (an anchor that does not pack)
+enum { KN_UNANCHORED, KN_ANCHORED, KN_FALLBACK };
+
+// Python's // and % (floor division) for the depth split and path quotas
+inline int64_t py_floordiv(int64_t a, int64_t b) {
+  int64_t q = a / b;
+  if ((a % b != 0) && ((a < 0) != (b < 0))) q--;
+  return q;
+}
+inline int64_t py_mod(int64_t a, int64_t b) { return a - py_floordiv(a, b) * b; }
+
+inline bool kn_acgt(uint8_t c) { return c == 'A' || c == 'C' || c == 'G' || c == 'T'; }
+
+inline int kn_code(uint8_t c) {
+  return c == 'A' ? 0 : c == 'C' ? 1 : c == 'G' ? 2 : 3;
+}
+
+struct EdgeHash {
+  size_t operator()(const std::pair<uint64_t, uint64_t>& e) const {
+    return std::hash<uint64_t>()(e.first * 0x9E3779B97F4A7C15ULL ^ e.second);
+  }
+};
+
+struct KnGraph {
+  uint32_t k, h;
+  const uint8_t* bf;
+  uint64_t bytes;
+  uint64_t kmask;
+  unsigned top;
+  // PackedDBG.successors / predecessors: children in ascending base order
+  int succ(uint64_t v, uint64_t* out) const {
+    int32_t m = gp_extend4p(v, k, h, bf, bytes, 1);
+    uint64_t base = (v << 2) & kmask;
+    int n = 0;
+    for (int b = 0; b < 4; b++)
+      if (m >> b & 1) out[n++] = base | (uint64_t)b;
+    return n;
+  }
+  int pred(uint64_t v, uint64_t* out) const {
+    int32_t m = gp_extend4p(v, k, h, bf, bytes, 0);
+    uint64_t base = v >> 2;
+    int n = 0;
+    for (int b = 0; b < 4; b++)
+      if (m >> b & 1) out[n++] = base | ((uint64_t)b << top);
+    return n;
+  }
+};
+
+// get_start_kmer_pos: DBG.window_probes' present/valid per window (the
+// rolling hash of gp_nthash_all; a window is probed only where valid, the
+// only windows the scan reads), then the right-to-left run counting.
+int64_t kn_start_pos(const uint8_t* s, int64_t n, const KnGraph& g,
+                     int64_t threshold, bool anchor_to_end,
+                     std::vector<uint8_t>& ok) {
+  const uint32_t k = g.k;
+  if (n < (int64_t)k) return -1;
+  const int64_t nw = n - k + 1;
+  const uint64_t bits = g.bytes * 8;
+  ok.assign(nw, 0);  // bit 0 valid, bit 1 present
+  uint64_t fh = 0, rh = 0;
+  int64_t bad = 0;
+  for (uint32_t i = 0; i < k; i++) {
+    fh = srol(fh) ^ kSeeds.fwd[s[i]];
+    rh = srol(rh) ^ kSeeds.rc[s[k - 1 - i]];
+    bad += !kn_acgt(s[i]);
+  }
+  uint64_t hs[16];
+  for (int64_t w = 0; w < nw; w++) {
+    if (w > 0) {
+      uint8_t out_c = s[w - 1], in_c = s[w + k - 1];
+      fh = srol(fh) ^ kSeeds.fwd[in_c] ^ srol_n(kSeeds.fwd[out_c], k);
+      uint64_t v = rh ^ srol_n(kSeeds.rc[in_c], k) ^ kSeeds.rc[out_c];
+      uint64_t hi = v >> 33, lo = v & M33;
+      hi = ((hi >> 1) | (hi << 30)) & M31;
+      lo = ((lo >> 1) | (lo << 32)) & M33;
+      rh = (hi << 33) | lo;
+      bad += (int64_t)!kn_acgt(in_c) - (int64_t)!kn_acgt(out_c);
+    }
+    if (bad == 0) {
+      multi_hash(fh + rh, k, g.h, hs);
+      ok[w] = 1 | (bf_contains(g.bf, bits, hs, g.h) ? 2 : 0);
+    }
+  }
+  int64_t match_count = 0, max_len = 0, max_pos = 0, prev_pos = nw;
+  bool broke = false;
+  for (int64_t p = nw - 1; p >= 0; p--) {
+    if (!(ok[p] & 1)) continue;
+    if (prev_pos - p > 1 || !(ok[p] & 2)) {
+      if (match_count > max_len) {
+        max_pos = p + 1;
+        max_len = match_count;
+      }
+      if (anchor_to_end) {
+        broke = true;
+        break;
+      }
+      match_count = 0;
+    } else {
+      match_count++;
+      if (match_count >= threshold) return p;
+    }
+    prev_pos = p;
+  }
+  if (!broke && match_count > max_len) {
+    max_pos = prev_pos;
+    max_len = match_count;
+  }
+  return max_len > 0 ? max_pos : -1;
+}
+
+// _BidiSearch (konnector.py): the alternating two-frontier constrained BFS
+// and its path enumeration.
+struct KnSearch {
+  static constexpr int F = 0, R = 1;
+  const KnGraph& g;
+  uint64_t start, goal;
+  int64_t max_paths, min_path_len, max_path_len, max_branches, max_cost,
+      mem_limit;
+  int64_t max_depth[2];
+  std::unordered_map<uint64_t, int64_t> depth[2];
+  std::unordered_set<uint64_t> color[2];
+  std::unordered_map<uint64_t, std::vector<uint64_t>> trav[2];
+  std::vector<std::pair<uint64_t, uint64_t>> common_edges;
+  std::unordered_set<std::pair<uint64_t, uint64_t>, EdgeHash> common_set;
+  int64_t cost = 0, nodes_visited = 0, peak_branches = 0;
+  bool too_many_paths = false, too_many_branches = false,
+       max_cost_exceeded = false, exceeded_mem_limit = false;
+  int64_t trav_edges = 0, mem_counter = 0;
+  std::deque<uint64_t> q[2];
+
+  KnSearch(const KnGraph& g_, uint64_t s, uint64_t t, int64_t mp, int64_t minl,
+           int64_t maxl, int64_t mb, int64_t mc, int64_t ml)
+      : g(g_), start(s), goal(t), max_paths(mp), min_path_len(minl),
+        max_path_len(maxl), max_branches(mb), max_cost(mc), mem_limit(ml) {
+    int64_t md = max_path_len - 1;
+    max_depth[F] = py_floordiv(md, 2) + py_mod(md, 2);
+    max_depth[R] = py_floordiv(md, 2);
+  }
+
+  int64_t approx_mem_usage() const {
+    int64_t per_vertex = 160 + g.k, per_edge = 60 + g.k;
+    int64_t n_vertices = (int64_t)(depth[0].size() + depth[1].size());
+    return n_vertices * per_vertex + trav_edges * per_edge;
+  }
+
+  bool check_mem() {
+    if (mem_limit == KN_NO_LIMIT) return true;
+    if (++mem_counter >= KN_MEM_COUNTER_ROLLOVER) {
+      mem_counter = 0;
+      if (approx_mem_usage() > mem_limit) {
+        exceeded_mem_limit = true;
+        return false;
+      }
+    }
+    return true;
+  }
+
+  int64_t depth_of(int dirn, uint64_t v) const {
+    auto it = depth[dirn].find(v);
+    return it == depth[dirn].end() ? 0 : it->second;
+  }
+
+  void record_traversal(int dirn, uint64_t u, uint64_t v) {
+    if (dirn == F)
+      trav[F][v].push_back(u);
+    else
+      trav[R][u].push_back(v);
+    trav_edges++;
+  }
+
+  bool spend() {  // the cost check and charge of every edge kind
+    if (cost >= max_cost) {
+      max_cost_exceeded = true;
+      return false;
+    }
+    cost++;
+    return true;
+  }
+
+  // false aborts the whole search
+  bool visit_edge(int dirn, uint64_t u, uint64_t v) {
+    if (!check_mem()) return false;
+    uint64_t child = dirn == F ? v : u;
+    uint64_t parent = dirn == F ? u : v;
+    int other = dirn == F ? R : F;
+    if (color[other].count(child)) {  // common edge
+      if (!spend()) return false;
+      if (depth_of(dirn, parent) >= max_depth[dirn]) return true;
+      if (common_set.insert({u, v}).second) {
+        common_edges.push_back({u, v});
+        if (max_paths != KN_NO_LIMIT && (int64_t)common_edges.size() > max_paths) {
+          too_many_paths = true;
+          return false;
+        }
+      }
+      record_traversal(F, u, v);
+      record_traversal(R, u, v);
+      return true;
+    }
+    if (!color[dirn].count(child)) {  // tree edge
+      if (!spend()) return false;
+      int64_t pd = depth_of(dirn, parent);
+      if (pd == max_depth[dirn]) return true;
+      depth[dirn][child] = pd + 1;
+      record_traversal(dirn, u, v);
+      if (max_branches != KN_NO_LIMIT && (int64_t)q[dirn].size() >= max_branches) {
+        too_many_branches = true;
+        return false;
+      }
+      nodes_visited++;
+      peak_branches = std::max(peak_branches, (int64_t)q[dirn].size() + 1);
+      color[dirn].insert(child);
+      q[dirn].push_back(child);
+      return true;
+    }
+    if (!spend()) return false;  // non-tree edge
+    record_traversal(dirn, u, v);
+    return true;
+  }
+
+  void run() {
+    color[F].insert(start);
+    color[R].insert(goal);
+    nodes_visited += 2;
+    peak_branches = std::max<int64_t>(peak_branches, 2);
+    q[F].push_back(start);
+    q[R].push_back(goal);
+    int dirn = F;
+    uint64_t nb[4];
+    while (!q[F].empty() || !q[R].empty()) {
+      uint64_t u = q[dirn].front();
+      q[dirn].pop_front();
+      int n = dirn == F ? g.succ(u, nb) : g.pred(u, nb);
+      for (int i = 0; i < n; i++) {
+        bool go = dirn == F ? visit_edge(F, u, nb[i]) : visit_edge(R, nb[i], u);
+        if (!go) return;
+      }
+      if (dirn == R && !q[F].empty())
+        dirn = F;
+      else if (dirn == F && !q[R].empty())
+        dirn = R;
+    }
+  }
+
+  // _all_paths: the backtracking DFS whose stack discipline fixes the path
+  // order; returns the status and adds its cost to *cost_out
+  int all_paths(const std::unordered_map<uint64_t, std::vector<uint64_t>>& graph,
+                uint64_t from, uint64_t to, int64_t max_n, int64_t max_d,
+                int64_t max_c, std::vector<std::vector<uint64_t>>& paths,
+                int64_t* cost_out) const {
+    paths.clear();
+    int64_t c = 0;
+    std::vector<std::pair<uint64_t, int64_t>> stack{{from, 0}};
+    std::vector<uint64_t> path;
+    std::unordered_set<uint64_t> on_path;
+    int status = KN_NO_PATH;
+    while (!stack.empty()) {
+      c++;
+      if (c > max_c) {
+        status = KN_MAX_COST_EXCEEDED;
+        break;
+      }
+      auto [node, d] = stack.back();
+      stack.pop_back();
+      while ((int64_t)path.size() > d) {
+        on_path.erase(path.back());
+        path.pop_back();
+      }
+      path.push_back(node);
+      on_path.insert(node);
+      if (node == to) {
+        paths.push_back(path);
+        if (max_n != KN_NO_LIMIT && (int64_t)paths.size() > max_n) {
+          status = KN_TOO_MANY_PATHS;
+          break;
+        }
+        continue;
+      }
+      if (d >= max_d) continue;
+      auto it = graph.find(node);
+      if (it == graph.end()) continue;
+      for (uint64_t nxt : it->second) {
+        if (on_path.count(nxt)) continue;
+        stack.push_back({nxt, d + 1});
+      }
+    }
+    *cost_out += c;
+    if (status != KN_NO_PATH) {
+      paths.clear();
+      return status;
+    }
+    return paths.empty() ? KN_NO_PATH : KN_FOUND_PATH;
+  }
+
+  // paths_to_goal: the status, and the paths in enumeration order
+  int paths_to_goal(std::vector<std::vector<uint64_t>>& found) {
+    found.clear();
+    if (too_many_paths) return KN_TOO_MANY_PATHS;
+    if (too_many_branches) return KN_TOO_MANY_BRANCHES;
+    if (max_cost_exceeded) return KN_MAX_COST_EXCEEDED;
+    if (exceeded_mem_limit) return KN_EXCEEDED_MEM_LIMIT;
+    int overall = KN_NO_PATH;
+    std::vector<std::vector<uint64_t>> left, right;
+    for (const auto& [u, v] : common_edges) {
+      if (cost > max_cost) {
+        found.clear();
+        return KN_MAX_COST_EXCEEDED;
+      }
+      int64_t max_to_start = max_paths - (int64_t)found.size();
+      int st = all_paths(trav[F], u, start, max_to_start, max_depth[F],
+                         max_cost - cost, left, &cost);
+      if (st == KN_FOUND_PATH) {
+        int64_t max_to_goal =
+            py_floordiv(max_paths - (int64_t)found.size(), (int64_t)left.size());
+        st = all_paths(trav[R], v, goal, max_to_goal, max_depth[R],
+                       max_cost - cost, right, &cost);
+        if (st == KN_FOUND_PATH) {
+          bool added = false;
+          for (const auto& lp : left)
+            for (const auto& rp : right) {
+              int64_t total = (int64_t)(lp.size() + rp.size());
+              if (total < min_path_len || total > max_path_len) continue;
+              std::vector<uint64_t> p(lp.rbegin(), lp.rend());
+              p.insert(p.end(), rp.begin(), rp.end());
+              found.push_back(std::move(p));
+              added = true;
+            }
+          st = added ? KN_FOUND_PATH : KN_NO_PATH;
+        }
+      }
+      if (st == KN_FOUND_PATH) {
+        overall = KN_FOUND_PATH;
+      } else if (st != KN_NO_PATH) {
+        found.clear();
+        return st;
+      }
+    }
+    return overall;
+  }
+};
+
+// path_to_seq on packed vertices: the first k-mer, then each later
+// vertex's last base
+void kn_path_seq(const std::vector<uint64_t>& path, uint32_t k, std::string& out) {
+  static const char BASES[4] = {'A', 'C', 'G', 'T'};
+  out.clear();
+  for (uint32_t i = 0; i < k; i++)
+    out.push_back(BASES[(path[0] >> (2 * (k - 1 - i))) & 3]);
+  for (size_t i = 1; i < path.size(); i++) out.push_back(BASES[path[i] & 3]);
+}
+
+}  // namespace
+
+extern "C" {
+
+// One k round of the sealer's searches (konnector.connect_pairs_batch on a
+// plain DBG): for each pair i0, i0+1, ... of reads (read1 = reads[offs[2i] ..
+// offs[2i+1]), read2 = reads[offs[2i+1] .. offs[2i+2])), the anchor choice
+// on both flanks, the decided cases of _prepare_search, the bidirectional
+// search and the path enumeration.
+//
+// prm: min_merged_seq_len, max_merged_seq_len, max_paths, max_branches,
+// max_cost, mem_limit, preserve_reads.  res: 8 int64 a pair: kind (KN_*),
+// result code, start and goal k-mer positions, cost (before the path
+// enumeration), nodes visited, peak branches, paths.  A found pair's
+// connecting sequences go to seqs (concatenated) and their lengths to lens.
+// used[0], used[1]: bytes and paths this call wrote.  When a pair's paths
+// do not fit, the call stops before it and leaves what that pair needs in
+// used[2], used[3].  Returns the index one past the last pair done, or -1
+// for arguments out of range.
+int64_t gp_konnect_pairs(const uint8_t* reads, const int64_t* offs,
+                         int64_t n_pairs, int64_t i0, uint32_t k,
+                         uint32_t hash_num, const uint8_t* bf, uint64_t bf_bytes,
+                         const int64_t* prm, int64_t* res, uint8_t* seqs,
+                         int64_t seqs_cap, int64_t* lens, int64_t lens_cap,
+                         int64_t* used) {
+  if (k < 2 || k > 32 || hash_num < 1 || hash_num > 16 || i0 < 0) return -1;
+  const KnGraph g{k, hash_num, bf, bf_bytes,
+                  k == 32 ? ~0ULL : ((1ULL << (2 * k)) - 1), 2 * (k - 1)};
+  const int64_t min_merged = prm[0], max_merged = prm[1];
+  const bool preserve = prm[6] != 0;
+  used[0] = used[1] = used[2] = used[3] = 0;
+  std::vector<uint8_t> ok;
+  std::vector<std::vector<uint64_t>> paths;
+  std::vector<std::string> seq_out;
+  for (int64_t i = i0; i < n_pairs; i++) {
+    const uint8_t* r1 = reads + offs[2 * i];
+    const int64_t n1 = offs[2 * i + 1] - offs[2 * i];
+    const uint8_t* r2 = reads + offs[2 * i + 1];
+    const int64_t n2 = offs[2 * i + 2] - offs[2 * i + 1];
+    int64_t* row = res + 8 * i;
+    std::fill(row, row + 8, 0);
+    row[0] = KN_UNANCHORED;
+    row[2] = row[3] = -1;
+    seq_out.clear();
+    if (n1 >= (int64_t)k && n2 >= (int64_t)k) {
+      int64_t sp = kn_start_pos(r1, n1, g, 3, preserve, ok);
+      int64_t gp = kn_start_pos(r2, n2, g, 3, preserve, ok);
+      if (sp >= 0 && gp >= 0) {
+        bool packable = true;
+        uint64_t s = 0, t = 0;
+        for (uint32_t j = 0; j < k; j++) {
+          uint8_t a = r1[sp + j], b = r2[gp + k - 1 - j];
+          packable = packable && kn_acgt(a) && kn_acgt(b);
+          s = (s << 2) | (uint64_t)kn_code(a);
+          t = (t << 2) | (uint64_t)(3 - kn_code(b));  // revcomp of the goal
+        }
+        row[0] = packable ? KN_ANCHORED : KN_FALLBACK;
+        row[2] = sp;
+        row[3] = gp;
+        if (packable && s == t) {  // identical anchors: a one-node path
+          row[1] = KN_FOUND_PATH;
+          seq_out.emplace_back((const char*)r1 + sp, k);
+        } else if (packable) {
+          int64_t max_path_len = max_merged - k + 1 - sp - gp;
+          int64_t min_path_len =
+              std::max<int64_t>(0, min_merged - k + 1 - sp - gp);
+          min_path_len = std::max({min_path_len, n1 - (int64_t)k + 1 - sp,
+                                   n2 - (int64_t)k + 1 - gp});
+          KnSearch srch(g, s, t, prm[2], min_path_len, max_path_len, prm[3],
+                        prm[4], prm[5]);
+          srch.run();
+          row[4] = srch.cost;
+          row[5] = srch.nodes_visited;
+          row[6] = srch.peak_branches;
+          row[1] = srch.paths_to_goal(paths);
+          if (row[1] == KN_FOUND_PATH) {
+            seq_out.resize(paths.size());
+            for (size_t j = 0; j < paths.size(); j++)
+              kn_path_seq(paths[j], k, seq_out[j]);
+          }
+        }
+      }
+    }
+    int64_t bytes = 0;
+    for (const auto& x : seq_out) bytes += (int64_t)x.size();
+    if (used[0] + bytes > seqs_cap || used[1] + (int64_t)seq_out.size() > lens_cap) {
+      used[2] = bytes;
+      used[3] = (int64_t)seq_out.size();
+      return i;
+    }
+    row[7] = (int64_t)seq_out.size();
+    for (const auto& x : seq_out) {
+      std::memcpy(seqs + used[0], x.data(), x.size());
+      used[0] += (int64_t)x.size();
+      lens[used[1]++] = (int64_t)x.size();
+    }
+  }
+  return n_pairs;
 }
 
 }  // extern "C"

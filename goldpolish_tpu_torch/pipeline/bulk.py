@@ -322,7 +322,7 @@ def polish_batch_records(records, builder: BFBuilder, cfg: PipelineConfig,
                 # the host search for numpy and hybrid alike, as the JAX
                 # package passes; the jax backend's lockstep device DBG
                 backend="jax" if cfg.backend == "jax" else "numpy",
-                device=cfg.device,
+                device=cfg.device, tally=seal.attrs,
             )
         timing["sealer_s"] = round(seal.seconds, 3)
         stats["sealer"] = seal_stats

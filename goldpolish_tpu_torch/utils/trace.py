@@ -133,11 +133,13 @@ def summary(spans) -> str:
     """Per span name its count, sum and max in seconds; per k the batches
     whose edit ran its scan on the device and on the host; per run its
     fill workers (bulk.run's fill_workers), and the fills that started
-    while another ran (fill.build's inflight of 2 or more)."""
+    while another ran (fill.build's inflight of 2 or more); the seals'
+    searches and those the native round took (seal's searches, native)."""
     by_name: dict[str, list[float]] = {}
     placed: dict[int, dict[str, int]] = {}
     workers: list[int] = []
     fills = beside = 0
+    searches = native = None
     for name, t0, t1, attrs in spans:
         by_name.setdefault(name, []).append((t1 - t0) / 1e9)
         if name == "edit.k":
@@ -148,6 +150,9 @@ def summary(spans) -> str:
         elif name == "fill.build" and "inflight" in attrs:
             fills += 1
             beside += attrs["inflight"] >= 2
+        elif name == "seal" and "searches" in attrs:
+            searches = (searches or 0) + attrs["searches"]
+            native = (native or 0) + attrs["native"]
     parts = [f"{n} n={len(d)} sum={sum(d):.3f}s max={max(d):.3f}s"
              for n, d in sorted(by_name.items())]
     where = [f"k={k} device={p['device']} host={p['host']}"
@@ -156,4 +161,6 @@ def summary(spans) -> str:
     if workers:
         line += (f" | fill workers={','.join(map(str, workers))}"
                  f" overlapped={beside} of {fills}")
+    if searches is not None:
+        line += f" | seal native={native} of {searches}"
     return line

@@ -129,6 +129,30 @@ def test_bulk_spans_inline_fill(tmp_path, monkeypatch):
         assert "bf_fill_bg_s" not in stats[key]["timing"]
 
 
+@pytest.mark.parametrize("k_values", [[32, 28], [47]])
+def test_seal_span_counts_native_searches(tmp_path, k_values):
+    """The seal span's searches (every k round's pairs) and native (those
+    the native round took): all of them at k <= 32, none at k = 47, and
+    the spans line says so."""
+    from goldpolish_tpu_torch.io import fasta
+
+    common = {**_inputs(tmp_path), "k_values": k_values}
+    # an n gap in each contig, so that every batch searches
+    recs = list(fasta.read_seqs(common["seqs_to_polish"]))
+    fasta.write_fasta(common["seqs_to_polish"], [
+        fasta.SeqRecord(r.id, r.comment, r.seq[:1400] + "n" * 60 + r.seq[1460:])
+        for r in recs])
+    totals, _stats, _out = _run(tmp_path, "seal", backend="numpy", **common)
+    seals = _by(totals["trace"]["spans"], "seal")
+    assert len(seals) == 4
+    searches = sum(s[3]["searches"] for s in seals)
+    native = sum(s[3]["native"] for s in seals)
+    assert searches >= 4 * len(k_values)
+    assert native == (searches if max(k_values) <= 32 else 0)
+    assert trace.summary(totals["trace"]["spans"]).endswith(
+        f" | seal native={native} of {searches}")
+
+
 def test_process_pool_workers_record_nothing(tmp_path):
     """Fork-pool workers time their stages but record no span: the parent's
     trace has the run's own spans and each batch's write."""
@@ -212,6 +236,14 @@ def test_summary_line():
         "edit.k n=3 sum=0.004s max=0.002s; seal n=1 sum=0.003s max=0.003s"
         " | placement k=32 device=1 host=1; k=28 device=0 host=1")
     assert trace.summary([]) == ""
+
+
+def test_summary_line_seal_counts():
+    """The seals' searches and those the native round took, summed."""
+    spans = [("seal", 0, 1_000_000, {"searches": 10, "native": 10}),
+             ("seal", 0, 1_000_000, {"searches": 5, "native": 3})]
+    assert trace.summary(spans) == (
+        "seal n=2 sum=0.002s max=0.001s | seal native=13 of 15")
 
 
 def test_summary_line_fill_workers():
